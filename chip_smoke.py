@@ -8,18 +8,29 @@ Run from the repository root, with no arguments::
 Phases, one line each, any failure exits non-zero:
 
 1. device: the CUDA card's name and ``nvidia-smi`` name and power limit;
-2. build: compiles both CUDA kernels from ``lzw_tpu_torch/kernels/csrc``
-   (nvcc, sm_90a) and the native runtime from ``lzw_tpu/native``;
-3. kernel vs plain: the encode-parse and pass-1 kernels against their plain
-   PyTorch versions on the card, exact equality, for gif7, gif2, tiff and
-   fixed-12 on 64 blocks x 8 KiB of random and compressible data;
+2. build: compiles the three CUDA kernels from ``lzw_tpu_torch/kernels/csrc``
+   (nvcc, sm_90a) and the native runtime from ``lzw_tpu/native``, all at
+   once;
+3. kernel vs plain: the encode-parse, pass-1 (with its stride-2 pair rows)
+   and pass-2 kernels against their plain PyTorch versions on the card,
+   exact equality, for gif7, gif2, tiff and fixed-12 on 64 blocks x 8 KiB of
+   random and compressible data;
 4. the slice: ``BlockParallelCodec(LzwSpec.gif(7), device="cuda")`` on
    128 MiB (2048 x 64 KiB blocks) of the tiled image corpus and of the tiled
-   text corpus: every payload equal to the native runtime's encoder, a
-   byte-exact round trip, the launch counts of both kernels, stage and end
-   to end MiB/s; then both kernels against their plain versions at the
-   main path's shapes;
-5. a 32 MiB fixed-12 round trip at 4 KiB blocks with the same checks.
+   text corpus: every payload equal to the native runtime's encoder, and a
+   byte-exact round trip through each decode route, the hybrid
+   (``pass2="host"``: the native ``apply_words``), the all-device one
+   (``pass2="device"``, which must not call the native runtime) and the
+   default ``"auto"`` (which must take the device route here); the launch
+   counts of each route, stage and end to end MiB/s; then the three kernels
+   against their plain versions at the main path's shapes;
+5. a 32 MiB fixed-12 round trip at 4 KiB blocks with the same checks, and
+   the three kernels against their plain versions at its shape;
+6. a non-strict gif7 container (128 x 64 KiB blocks, an early CLEAR every
+   2000 bytes) through ``pass2="device"`` and ``"auto"`` (which must call
+   the native ``decode_blocks``): equal to the input and to the native
+   runtime's ``decode_blocks``; then the decode kernels against their plain
+   versions at the sub-streams' shape.
 
 It prints a ``{"kernels": [...]}`` line and ends with
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside the
@@ -34,15 +45,23 @@ import pathlib
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 ROOT = pathlib.Path(__file__).resolve().parent
 MiB = 1 << 20
-ENCODE_SRC = "lzw_tpu_torch/kernels/csrc/encode_parse.cu"
-DECODE_SRC = "lzw_tpu_torch/kernels/csrc/decode_pass1.cu"
-# The TPU kernels the two CUDA kernels replace (file:line of the kernel
-# function; see PERF.md for the whole table).
-ENCODE_REPLACES = "lzw_tpu/kernels/encode_pallas.py:501"
-DECODE_REPLACES = "lzw_tpu/kernels/decode_pallas.py:128"
+# Each CUDA kernel's source and the TPU kernel it replaces (file:line of the
+# kernel function; see PERF.md for the whole table).
+KERNEL_SOURCES = {
+    "encode_parse": ("lzw_tpu_torch/kernels/csrc/encode_parse.cu",
+                     "lzw_tpu/kernels/encode_pallas.py:501"),
+    "decode_pass1": ("lzw_tpu_torch/kernels/csrc/decode_pass1.cu",
+                     "lzw_tpu/kernels/decode_pallas.py:128"),
+    "decode_pass2": ("lzw_tpu_torch/kernels/csrc/decode_pass2.cu",
+                     "lzw_tpu/kernels/decode_pallas.py:1289"),
+}
+# Calls of the native runtime's decode entry points, by name; the
+# all-device route must make none.
+HOST_CALLS = {"apply_words": 0, "decode_blocks": 0}
 
 
 def say(phase: str, msg: str) -> None:
@@ -147,13 +166,45 @@ def pass1_inputs(spec, dense, counts, device):
     return codes, cnt_t, torch.from_numpy(sched_arr).to(device)
 
 
+def compare_decode(spec, codes, n_codes, block, sched_t, label):
+    """Pass 1 (with its stride-2 pair rows) and pass 2 against their plain
+    versions on the same CUDA inputs.
+
+    Returns ({kernel: (max_abs_err, kernel ms, plain ms)}, pass-1 outputs,
+    pass-2 bytes)."""
+    from lzw_tpu_torch.kernels import decode as tdec
+
+    dec = tdec.decode_pass1(codes, n_codes, spec, block, sched_t, pair2=True)
+    plain_ms_d, dec_ref = once_ms(lambda: tdec.decode_pass1_reference(
+        codes, n_codes, spec, block, sched_t, pair2=True))
+    err_d = max_abs_err(dec, dec_ref)
+    ms_d = cuda_ms(lambda: tdec.decode_pass1(codes, n_codes, spec, block,
+                                             sched_t, pair2=True))
+    words, _, _, _, pair = dec
+    out = tdec.decode_pass2_stride2(codes, words, pair, n_codes, block, spec,
+                                    sched_t)
+    plain_ms_2, out_ref = once_ms(lambda: tdec.decode_pass2_stride2_reference(
+        codes, words, pair, n_codes, block, spec, sched_t))
+    err_2 = max_abs_err((out,), (out_ref,))
+    ms_2 = cuda_ms(lambda: tdec.decode_pass2_stride2(
+        codes, words, pair, n_codes, block, spec, sched_t))
+    if err_d or err_2:
+        raise AssertionError(
+            f"{label}: kernel != plain (pass 1 max_abs_err {err_d}, "
+            f"pass 2 max_abs_err {err_2})")
+    if int(dec[2].abs().sum()):
+        raise AssertionError(f"{label}: unexpected pass-1 error flags")
+    return ({"decode_pass1": (err_d, ms_d, plain_ms_d),
+             "decode_pass2": (err_2, ms_2, plain_ms_2)}, dec, out)
+
+
 def compare_kernels(spec, mat, lens, block, device, label):
-    """Both kernels against their plain versions on the same CUDA inputs.
+    """The three kernels against their plain versions on the same CUDA
+    inputs, and pass 2's bytes against the blocks.
 
     Returns per-kernel (max_abs_err, kernel ms, plain ms)."""
     import torch
 
-    from lzw_tpu_torch.kernels import decode as tdec
     from lzw_tpu_torch.kernels import encode as tenc
 
     blocks_t = torch.from_numpy(mat).to(device)
@@ -163,66 +214,128 @@ def compare_kernels(spec, mat, lens, block, device, label):
         lambda: tenc.encode_blocks_codes_reference(blocks_t, lens_t, spec))
     err_e = max_abs_err(enc, enc_ref)
     ms_e = cuda_ms(lambda: tenc.encode_blocks_codes(blocks_t, lens_t, spec))
+    if err_e:
+        raise AssertionError(
+            f"{label}: encode_parse != plain, max_abs_err {err_e}")
+    if int(enc[2].abs().sum()):
+        raise AssertionError(f"{label}: unexpected encode error flags")
     dense, counts = enc[0], enc[1]
     codes, n_codes, sched_t = pass1_inputs(spec, dense, counts, device)
-    dec = tdec.decode_pass1(codes, n_codes, spec, block, sched_t)
-    plain_ms_d, dec_ref = once_ms(lambda: tdec.decode_pass1_reference(
-        codes, n_codes, spec, block, sched_t))
-    err_d = max_abs_err(dec, dec_ref)
-    ms_d = cuda_ms(lambda: tdec.decode_pass1(codes, n_codes, spec, block,
-                                             sched_t))
-    if err_e or err_d:
-        raise AssertionError(
-            f"{label}: kernel != plain (encode max_abs_err {err_e}, "
-            f"pass 1 max_abs_err {err_d})"
-        )
-    if int(enc[2].abs().sum()) or int(dec[2].abs().sum()):
-        raise AssertionError(f"{label}: unexpected error flags")
+    res, dec, out = compare_decode(spec, codes, n_codes, block, sched_t,
+                                   label)
+    # The decoded bytes are the blocks themselves.
+    if not torch.equal(dec[1].cpu(), lens_t.cpu()):
+        raise AssertionError(f"{label}: pass-1 totals != block lengths")
+    keep = torch.arange(block, device=device)[None, :] < lens_t[:, None]
+    if not torch.equal(torch.where(keep, out, 0), torch.where(keep, blocks_t, 0)):
+        raise AssertionError(f"{label}: pass 2 did not give the input back")
+    res["encode_parse"] = (err_e, ms_e, plain_ms_e)
     say("kernels", f"{label}: N={mat.shape[0]} B={block} "
         f"codes={int(counts.sum())} max code/block={int(counts.max())}; "
-        f"encode_parse {ms_e:.3f} ms (plain {plain_ms_e:.1f} ms), "
-        f"decode_pass1 {ms_d:.3f} ms (plain {plain_ms_d:.1f} ms), "
-        "kernel == plain exactly")
-    return {"encode_parse": (err_e, ms_e, plain_ms_e),
-            "decode_pass1": (err_d, ms_d, plain_ms_d)}
+        + kernel_times(res) + ", kernel == plain exactly, pass 2 == input")
+    return res
+
+
+def kernel_times(res) -> str:
+    return ", ".join(f"{name} {ms:.3f} ms (plain {plain:.1f} ms)"
+                     for name, (_, ms, plain) in sorted(res.items()))
+
+
+def count_host_calls() -> None:
+    """Count calls of the native runtime's decode entry points."""
+    from lzw_tpu_torch.native.runtime import NativeRuntime
+
+    for name in HOST_CALLS:
+        fn = getattr(NativeRuntime, name)
+
+        def counted(self, *args, _fn=fn, _name=name, **kwargs):
+            HOST_CALLS[_name] += 1
+            return _fn(self, *args, **kwargs)
+
+        setattr(NativeRuntime, name, counted)
+
+
+def timed_run(fn, expect: dict[str, int], label: str):
+    """Run ``fn`` with every launch and host-call count set to 0 just before
+    it; check the counts just after against ``expect`` (kernel or host call
+    name -> 1: at least once, 0: never).  Returns (seconds, result,
+    launches)."""
+    import torch
+
+    from lzw_tpu_torch.kernels import build
+
+    build.reset_counts()
+    for name in HOST_CALLS:
+        HOST_CALLS[name] = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = {**build.LAUNCHES, **HOST_CALLS}
+    for name, want in expect.items():
+        if (counts[name] > 0) != bool(want):
+            raise AssertionError(
+                f"{label}: {name} ran {counts[name]} times, expected "
+                f"{'at least once' if want else 'never'}")
+    return dt, out, dict(build.LAUNCHES)
+
+
+def stage_line(label: str, route: str, stages: dict, mib: float) -> None:
+    say("slice", f"{label}: {route} stages (MiB/s over {mib:.0f} MiB): "
+        + ", ".join(f"{k} {mib / v:.1f} ({v * 1e3:.1f} ms)"
+                    for k, v in stages.items()))
 
 
 def run_container(spec, data: bytes, block: int, label: str,
                   device="cuda"):
-    """Encode + decode through BlockParallelCodec with every check; returns
-    (end-to-end seconds of encode, of decode, stage times, launches)."""
-    import numpy as np
-    import torch
-
+    """Encode, then decode by both routes, through BlockParallelCodec with
+    every check; returns the launch counts of the three runs."""
     from lzw_tpu_torch import BlockParallelCodec
-    from lzw_tpu_torch.kernels import build
     from lzw_tpu_torch.native.runtime import get_runtime
     from lzw_tpu_torch.parallel import framing
 
     size = len(data)
+    mib = size / MiB
+    routes = ("host", "device")
     # Stage breakdown (each stage ends in a synchronise); also the warm-up.
-    stages: dict[str, float] = {}
-    codec = BlockParallelCodec(spec, block_size=block, device=device,
-                               stage_times=stages)
-    container = codec.encode(data)
-    if codec.decode(container) != data:
-        raise AssertionError(f"{label}: staged round trip differs")
-    # End to end, with the launch counts of exactly this run.
-    codec = BlockParallelCodec(spec, block_size=block, device=device)
-    build.reset_counts()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    container2 = codec.encode(data)
-    t1 = time.perf_counter()
-    out = codec.decode(container2)
-    torch.cuda.synchronize()
-    t2 = time.perf_counter()
-    launches = dict(build.LAUNCHES)
+    enc_stages: dict[str, float] = {}
+    container = BlockParallelCodec(spec, block_size=block, device=device,
+                                   stage_times=enc_stages).encode(data)
+    dec_stages = {}
+    for route in routes:
+        dec_stages[route] = {}
+        codec = BlockParallelCodec(spec, block_size=block, device=device,
+                                   stage_times=dec_stages[route],
+                                   pass2=route)
+        if codec.decode(container) != data:
+            raise AssertionError(f"{label}: staged {route} round trip differs")
+    # End to end, each run with its own launch counts.
+    t_enc, container2, l_enc = timed_run(
+        lambda: BlockParallelCodec(spec, block_size=block,
+                                   device=device).encode(data),
+        {"encode_parse": 1}, f"{label} encode")
+    launches = [l_enc]
+    t_dec = {}
+    device_route = {"decode_pass1": 1, "decode_pass2": 1, "apply_words": 0,
+                    "decode_blocks": 0}
+    # "auto" on the card takes the device route for these strict blocks.
+    for route, expect in (
+            ("host", {"decode_pass1": 1, "decode_pass2": 0,
+                      "apply_words": 1}),
+            ("device", device_route), ("auto", device_route)):
+        codec = BlockParallelCodec(spec, block_size=block, device=device,
+                                   pass2=route)
+        t_dec[route], out, lc = timed_run(
+            lambda: codec.decode(container2), expect, f"{label} {route}")
+        if route != "auto":
+            launches.append(lc)
+        if out != data:
+            k = next(i for i, (a, b) in enumerate(zip(out, data)) if a != b)
+            raise AssertionError(
+                f"{label}: {route} round trip differs at byte {k}")
     if container2 != container:
         raise AssertionError(f"{label}: two encodes differ")
-    if out != data:
-        k = next(i for i, (a, b) in enumerate(zip(out, data)) if a != b)
-        raise AssertionError(f"{label}: round trip differs at byte {k}")
     _, payloads = framing.parse_frame(container)
     native = get_runtime().encode_blocks(data, spec, block)
     if len(native) != len(payloads):
@@ -234,19 +347,92 @@ def run_container(spec, data: bytes, block: int, label: str,
             f"{label}: {len(bad)} payloads differ from the native encoder, "
             f"first block {bad[0]}"
         )
-    for name in build.KERNELS:
-        if launches[name] < 1:
-            raise AssertionError(f"{label}: kernel {name} never launched")
     ratio = len(container) / size
-    mib = size / MiB
     say("slice", f"{label}: {mib:.0f} MiB in {size // block} blocks of "
         f"{block} B, ratio {ratio:.4f}; payloads == native encoder, round "
-        f"trip exact; launches {launches}")
-    say("slice", f"{label}: end to end encode {mib / (t1 - t0):.1f} MiB/s "
-        f"({(t1 - t0) * 1e3:.1f} ms), decode {mib / (t2 - t1):.1f} MiB/s "
-        f"({(t2 - t1) * 1e3:.1f} ms)")
-    say("slice", f"{label}: stages (MiB/s over {mib:.0f} MiB): " + ", ".join(
-        f"{k} {mib / v:.1f} ({v * 1e3:.1f} ms)" for k, v in stages.items()))
+        f"trip exact on every route; launches encode {l_enc}, host decode "
+        f"{launches[1]}, device decode {launches[2]} (no native call); "
+        "auto took the device route")
+    say("slice", f"{label}: end to end encode {mib / t_enc:.1f} MiB/s "
+        f"({t_enc * 1e3:.1f} ms), decode "
+        + ", ".join(f"{r} {mib / t:.1f} MiB/s ({t * 1e3:.1f} ms)"
+                    for r, t in t_dec.items()))
+    stage_line(label, "encode", enc_stages, mib)
+    for route in routes:
+        stage_line(label, f"decode {route}", dec_stages[route], mib)
+    return launches
+
+
+def run_nonstrict(spec, data: bytes, block: int, label: str, device="cuda"):
+    """Decode a container of foreign early-CLEAR streams with
+    ``pass2="device"`` and ``"auto"``; checks it against the input and the
+    native runtime, and the decode kernels against their plain versions at
+    the sub-streams' shape.  Returns the device decode's launch counts."""
+    import numpy as np
+    import torch
+
+    from lzw_tpu_torch import BlockParallelCodec
+    from lzw_tpu_torch.kernels.nonstrict import split_substreams
+    from lzw_tpu_torch.native.runtime import get_runtime
+    from lzw_tpu_torch.parallel import framing
+    from lzw_tpu_torch.utils.testdata import spliced_nonstrict_stream
+
+    payloads = [spliced_nonstrict_stream(data[i : i + block], spec, 2000,
+                                         device=device)
+                for i in range(0, len(data), block)]
+    container = framing.pack_frame(spec, block, len(data), payloads)
+    stages: dict[str, float] = {}
+    codec = BlockParallelCodec(spec, block_size=block, device=device,
+                               stage_times=stages, pass2="device")
+    if codec.decode(container) != data:
+        raise AssertionError(f"{label}: staged decode differs")
+    codec = BlockParallelCodec(spec, block_size=block, device=device,
+                               pass2="device")
+    t_dev, out, launches = timed_run(
+        lambda: codec.decode(container),
+        {"decode_pass1": 1, "decode_pass2": 1, "apply_words": 0,
+         "decode_blocks": 0}, label)
+    # "auto" on the card leaves non-strict blocks to the native runtime.
+    codec = BlockParallelCodec(spec, block_size=block, device=device)
+    t_auto, out_auto, _ = timed_run(
+        lambda: codec.decode(container),
+        {"decode_blocks": 1, "apply_words": 0}, f"{label} auto")
+    t0 = time.perf_counter()
+    native = get_runtime().decode_blocks(payloads, spec, block)
+    t_nat = time.perf_counter() - t0
+    if out != data or native != data or out_auto != data:
+        raise AssertionError(
+            f"{label}: device decode == input {out == data}, auto == input "
+            f"{out_auto == data}, native == input {native == data}")
+    mib = len(data) / MiB
+    say("slice", f"{label}: {mib:.0f} MiB in {len(payloads)} blocks of "
+        f"{block} B, early CLEAR every 2000 B; device and auto decode == "
+        f"input == native decode_blocks; device launches {launches} (no "
+        "native call); auto called decode_blocks")
+    say("slice", f"{label}: end to end decode device {mib / t_dev:.1f} MiB/s "
+        f"({t_dev * 1e3:.1f} ms), auto {mib / t_auto:.1f} MiB/s "
+        f"({t_auto * 1e3:.1f} ms), native decode_blocks {mib / t_nat:.1f} "
+        f"MiB/s ({t_nat * 1e3:.1f} ms)")
+    stage_line(label, "decode device", stages, mib)
+
+    # The decode kernels at the sub-streams' shape: the device route's
+    # codes, counts and schedule rows (pass 2 writes block-wide rows here,
+    # the route only as wide as the longest sub-stream).
+    mat = np.zeros((len(payloads), max(map(len, payloads))), np.uint8)
+    plens = np.array([len(p) for p in payloads], np.int32)
+    for i, p in enumerate(payloads):
+        mat[i, : len(p)] = np.frombuffer(p, np.uint8)
+    dense, cnt, _, sched_arr = split_substreams(mat, plens, spec)
+    res, dec, _ = compare_decode(
+        spec, torch.from_numpy(dense).to(device),
+        torch.from_numpy(cnt.astype(np.int32)).to(device), block,
+        torch.from_numpy(sched_arr).to(device), f"{label} sub-streams")
+    if int(dec[1].sum()) != len(data):
+        raise AssertionError(f"{label} sub-streams: pass-1 totals sum to "
+                             f"{int(dec[1].sum())}, not {len(data)}")
+    say("kernels", f"{label} sub-streams: U={dense.shape[0]} S="
+        f"{dense.shape[1]} B={block} bytes={int(dec[1].sum())}; "
+        + kernel_times(res) + ", kernel == plain exactly")
     return launches
 
 
@@ -276,16 +462,23 @@ def main() -> int:
         f"{torch.version.cuda}; nvidia-smi: {smi}")
     device = torch.device("cuda", 0)
 
-    # 2. Build.
-    for name in build.KERNELS:
+    # 2. Build: one nvcc per kernel and the native runtime, all at once.
+    def timed_build(fn):
         t0 = time.perf_counter()
-        build.load(name)
+        fn()
+        return time.perf_counter() - t0
+
+    with ThreadPoolExecutor(len(build.KERNELS) + 1) as pool:
+        jobs = {name: pool.submit(timed_build, lambda n=name: build.load(n))
+                for name in build.KERNELS}
+        jobs["native"] = pool.submit(timed_build, runtime.get_runtime)
+        secs = {name: job.result() for name, job in jobs.items()}
+    for name in build.KERNELS:
         say("build", f"{name}: nvcc {build.find_nvcc()} sm_90a, "
-            f"{time.perf_counter() - t0:.2f} s")
-    t0 = time.perf_counter()
-    runtime.get_runtime()
+            f"{secs[name]:.2f} s")
     say("build", f"native runtime from {runtime.SOURCE.relative_to(ROOT)}: "
-        f"{time.perf_counter() - t0:.2f} s")
+        f"{secs['native']:.2f} s")
+    count_host_calls()
 
     # 3. Kernel vs plain, all four flavors, 64 x 8 KiB.
     specs = {"gif7": LzwSpec.gif(7), "gif2": LzwSpec.gif(2),
@@ -300,25 +493,39 @@ def main() -> int:
     lorem = (assets / "lorem_ipsum.txt").read_bytes()
     gif7 = LzwSpec.gif(7)
     total = {name: 0 for name in build.KERNELS}
+
+    def add(runs):
+        for launches in runs:
+            for name in total:
+                total[name] += launches[name]
+
     for label, corpus in (("gif7 image", tokyo), ("gif7 text", lorem)):
-        launches = run_container(gif7, tile(corpus, 128 * MiB), 1 << 16,
-                                 label)
-        for name in total:
-            total[name] += launches[name]
-    # Both kernels at the main path's shapes (not counted as launches).
+        add(run_container(gif7, tile(corpus, 128 * MiB), 1 << 16, label))
+    # The kernels at the main path's shapes (not counted as launches).
     data = np.frombuffer(tile(tokyo, 128 * MiB), np.uint8)
     mat = data.reshape(-1, 1 << 16).copy()
     lens = np.full(mat.shape[0], 1 << 16, np.int32)
     full = compare_kernels(gif7, mat, lens, 1 << 16, device,
                            "gif7 image main-path shape")
+    del data, mat
 
-    # 5. Fixed-12 container, 32 MiB at 4 KiB blocks.
-    run_container(LzwSpec.fixed(Endianness.LITTLE), tile(tokyo, 32 * MiB),
-                  1 << 12, "fixed-12 image")
+    # 5. Fixed-12 container, 32 MiB at 4 KiB blocks, and the kernels at its
+    # shape.
+    fixed = LzwSpec.fixed(Endianness.LITTLE)
+    data = tile(tokyo, 32 * MiB)
+    add(run_container(fixed, data, 1 << 12, "fixed-12 image"))
+    mat = np.frombuffer(data, np.uint8).reshape(-1, 1 << 12).copy()
+    lens = np.full(mat.shape[0], 1 << 12, np.int32)
+    compare_kernels(fixed, mat, lens, 1 << 12, device,
+                    "fixed-12 image container shape")
+    del data, mat
+
+    # 6. Non-strict gif7 container, 128 x 64 KiB.
+    add([run_nonstrict(gif7, tile(tokyo, 8 * MiB), 1 << 16,
+                       "gif7 non-strict image")])
 
     kernels = []
-    for name, src, rep in (("encode_parse", ENCODE_SRC, ENCODE_REPLACES),
-                           ("decode_pass1", DECODE_SRC, DECODE_REPLACES)):
+    for name, (src, rep) in KERNEL_SOURCES.items():
         err, ms, plain_ms = full[name]
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": rep, "launches": total[name],

@@ -32,14 +32,15 @@ __all__ = ["KERNELS", "LAUNCHES", "BuildError", "find_nvcc", "load",
 _HERE = pathlib.Path(__file__).resolve().parent
 CSRC = _HERE / "csrc"
 BUILD_DIR = _HERE / "build"
-KERNELS = ("encode_parse", "decode_pass1")
+KERNELS = ("encode_parse", "decode_pass1", "decode_pass2")
 DEFAULT_NVCC = "/usr/local/cuda/bin/nvcc"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 
 LAUNCHES = {name: 0 for name in KERNELS}
 _libs: dict[str, ctypes.CDLL] = {}
-_lock = threading.Lock()
+# One lock per kernel: different kernels may build at the same time.
+_locks = {name: threading.Lock() for name in KERNELS}
 
 
 class BuildError(RuntimeError):
@@ -91,10 +92,10 @@ def _compile(name: str) -> pathlib.Path:
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of kernel ``name``, compiled on first use."""
-    with _lock:
+    if name not in KERNELS:
+        raise KeyError(f"unknown kernel {name!r}")
+    with _locks[name]:
         if name not in _libs:
-            if name not in KERNELS:
-                raise KeyError(f"unknown kernel {name!r}")
             try:
                 _libs[name] = ctypes.CDLL(str(_compile(name)))
             except OSError as exc:

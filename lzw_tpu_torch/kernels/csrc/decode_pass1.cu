@@ -1,9 +1,10 @@
 // LZW decode pass 1 for Hopper: codes -> copy/literal descriptors.
 //
 // Replaces the TPU kernel lzw_tpu/kernels/decode_pallas.py:_decode_kernel
-// (via _make_kernel; callers decode_pass1_fixed_tpu and _variable_pass1),
-// its words and stats outputs.  The pair/pair2 rows it also emits feed only
-// the all-device pass 2 and are not produced here.
+// (via _make_kernel; callers decode_pass1_fixed_tpu and _variable_pass1):
+// its words and stats outputs and, on request, its stride-2 pair rows
+// (`pair2=True`).  The stride-1 pair rows feed only the stride-1 pass 2,
+// which is not ported, and are not produced here.
 //
 // Each decoded word is a literal or a forward copy of an already-decoded
 // span of the same block, so pass 1 only tracks, per dictionary code, the
@@ -22,10 +23,19 @@
 // kept step-indexed tables (row = epoch_start + 1 + code - first_free) in a
 // 4096-row ring and matched rows with windowed sum-select scans.  Here each
 // thread indexes its own two u32 planes directly by code (plane A
-// len<<8 | first, plane B src; 2 x 16 KiB per block in global memory), and
-// the ring, windows and row mapping are gone.  Stale entries of an earlier
-// epoch are never read: within an epoch every code below `next` was
-// inserted in that epoch.
+// suffix<<20 | len<<8 | first, plane B prefix<<17 | src; 2 x 16 KiB per
+// block in global memory), and the ring, windows and row mapping are gone.
+// Stale entries of an earlier epoch are never read: within an epoch every
+// code below `next` was inserted in that epoch.
+//
+// Stride-2 pair rows (decode_pallas.py:323-352): row t holds the
+// descriptor of the entry created at step t (code `next`, prefix
+// prev_code, suffix `first`), else 0:
+//   done<<28 | prefix(p)<<16 | suffix(p)<<8 | suffix(c),  p = prev_code,
+// with done = 1 and suffix(p) = p's root byte when p is a root/literal.
+// (prefix, suffix) of the code consumed at the previous step ride in the
+// `pps` register (-1 for a root/literal); a looked-up code takes them from
+// the planes' extra fields, a KwKwK code from the entry just created.
 //
 // Semantics (decode_pallas.py:176-361):
 //  * the first step of an epoch is a literal; a stale non-root first code
@@ -49,18 +59,20 @@ __global__ void decode_pass1_kernel(
     int n_blocks, int S, int block_size, int alphabet, int first_free,
     const int32_t* __restrict__ sched, uint32_t* __restrict__ plane_a,
     uint32_t* __restrict__ plane_b, int32_t* __restrict__ words,
-    int32_t* __restrict__ totals, int32_t* __restrict__ err,
-    int32_t* __restrict__ err_code) {
+    int32_t* __restrict__ pair2, int32_t* __restrict__ totals,
+    int32_t* __restrict__ err, int32_t* __restrict__ err_code) {
   const int n = blockIdx.x * blockDim.x + threadIdx.x;
   if (n >= n_blocks) return;
   const int64_t row = static_cast<int64_t>(n) * S;
   const int32_t* c_row = codes + row;
   int32_t* w_row = words + row;
+  int32_t* p_row = pair2 == nullptr ? nullptr : pair2 + row;
   uint32_t* ta = plane_a + static_cast<int64_t>(n) * kTableSize;
   uint32_t* tb = plane_b + static_cast<int64_t>(n) * kTableSize;
   const int nc = n_codes[n];
 
   int prev_len = 0, prev_first = 0, off = 0, nxt = first_free;
+  int prev_code = 0, pps = -1;
   int e = 0, ec = 0;
   for (int t = 0; t < S; ++t) {
     const int code = c_row[t];
@@ -81,13 +93,16 @@ __global__ void decode_pass1_kernel(
     }
     bool ok = active && !bad;
     const bool is_lit = first_step || root;
-    int len_c = 0, first_c = 0, src_d = 0;
+    int len_c = 0, first_c = 0, src_d = 0, sfx_c = 0, pfx_c = 0;
     if (ok && !is_lit && !kwkwk) {
       const int c = code & (kTableSize - 1);
       const uint32_t a = ta[c];
+      const uint32_t b = tb[c];
       len_c = static_cast<int>((a >> 8) & 0xFFFu);
       first_c = static_cast<int>(a & 0xFFu);
-      src_d = static_cast<int>(tb[c]);
+      sfx_c = static_cast<int>((a >> 20) & 0xFFu);
+      src_d = static_cast<int>(b & 0x1FFFFu);
+      pfx_c = static_cast<int>((b >> 17) & 0xFFFu);
     }
     const int length = is_lit ? 1 : (kwkwk ? prev_len + 1 : len_c);
     const int first = first_step ? (code & 0xFF)
@@ -106,15 +121,34 @@ __global__ void decode_pass1_kernel(
         (kind << 29) | (static_cast<uint32_t>(length) << 17) | payload);
     const bool ins = ok && !first_step && nxt < kTableSize;
     if (ins) {
-      ta[nxt] = (static_cast<uint32_t>((prev_len + 1) & 0xFFF) << 8) |
+      ta[nxt] = (static_cast<uint32_t>(first & 0xFF) << 20) |
+                (static_cast<uint32_t>((prev_len + 1) & 0xFFF) << 8) |
                 static_cast<uint32_t>(prev_first & 0xFF);
-      tb[nxt] = static_cast<uint32_t>(off - prev_len);
+      tb[nxt] = (static_cast<uint32_t>(prev_code & 0xFFF) << 17) |
+                static_cast<uint32_t>(off - prev_len);
+    }
+    if (p_row != nullptr) {
+      int32_t p2 = 0;
+      if (ins) {
+        p2 = pps < 0 ? (1 << 28) | ((prev_code & 0xFF) << 8) | (first & 0xFF)
+                     : ((pps >> 8) << 16) | ((pps & 0xFF) << 8) |
+                           (first & 0xFF);
+      }
+      p_row[t] = p2;
     }
     if (sched == nullptr && ins) ++nxt;
     if (ok) {
+      if (is_lit) {
+        pps = -1;
+      } else if (kwkwk) {
+        pps = (prev_code << 8) | (first & 0xFF);
+      } else {
+        pps = (pfx_c << 8) | sfx_c;
+      }
       off += length;
       prev_len = length;
       prev_first = first;
+      prev_code = code;
     }
   }
   totals[n] = off;
@@ -127,16 +161,18 @@ __global__ void decode_pass1_kernel(
 // Launch on `stream`; returns cudaGetLastError() (0 on success).  `sched`
 // is null for the fixed flavor, else the [2, S] schedule rows
 // (next index - 1, epoch start ordinal) of a strict variable stream.
+// `pair2` is null unless the stride-2 pair rows [N, S] are wanted.
 extern "C" int decode_pass1_launch(
     const int32_t* codes, const int32_t* n_codes, int n_blocks, int S,
     int block_size, int alphabet, int first_free, const int32_t* sched,
-    uint32_t* plane_a, uint32_t* plane_b, int32_t* words, int32_t* totals,
-    int32_t* err, int32_t* err_code, int threads_per_cta, void* stream) {
+    uint32_t* plane_a, uint32_t* plane_b, int32_t* words, int32_t* pair2,
+    int32_t* totals, int32_t* err, int32_t* err_code, int threads_per_cta,
+    void* stream) {
   if (n_blocks <= 0) return 0;
   const int grid = (n_blocks + threads_per_cta - 1) / threads_per_cta;
   decode_pass1_kernel<<<grid, threads_per_cta, 0,
                         static_cast<cudaStream_t>(stream)>>>(
       codes, n_codes, n_blocks, S, block_size, alphabet, first_free, sched,
-      plane_a, plane_b, words, totals, err, err_code);
+      plane_a, plane_b, words, pair2, totals, err, err_code);
   return static_cast<int>(cudaGetLastError());
 }

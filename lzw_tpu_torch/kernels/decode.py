@@ -1,21 +1,28 @@
-"""Decode pass 1: the CUDA kernel, its plain version and the glue around it.
+"""Decode passes 1 and 2: the CUDA kernels, their plain versions and glue.
 
-Port of the pass-1 half of ``lzw_tpu/kernels/decode_pallas.py``: codes ->
-copy/literal descriptors ``kind<<29 | len<<17 | payload`` plus per-block
-total, err and err_code.  Pass 2, which resolves the descriptors into bytes,
-is the native runtime's ``apply_words`` on the host.
+Port of ``lzw_tpu/kernels/decode_pallas.py``.  Pass 1: codes -> copy/literal
+descriptors ``kind<<29 | len<<17 | payload`` plus per-block total, err and
+err_code, and on request the stride-2 pair rows.  Pass 2 resolves them into
+bytes: either the native runtime's ``apply_words`` on the host, or the
+all-device stride-2 chain walk :func:`decode_pass2_stride2`.
 
 TPU mechanics with no counterpart here: the lockstep group/cell/segment
 tiles and the VMEM group budgets (decode_pallas.py:569-570,609-624), the
 one-/two-plane and ring table layouts with their windowed scans (the kernel
 indexes its tables by code), and the padding of the code axis to whole
 cells.  ``MAX_BLOCK`` stays: the 17-bit descriptor payload that
-``apply_words`` reads bounds the block size, not the TPU.
+``apply_words`` reads bounds the block size, not the TPU.  Pass 2 drops the
+TPU's backwards lockstep walk with its epoch units, pooling and sorting,
+reversed output, per-lane shift and flip (decode_pallas.py:884-1056,
+1260, 1461-1566): each word's output offset is the prefix sum of pass 1's
+descriptor lengths, so every code slot resolves its own word in place.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -27,6 +34,9 @@ from lzw_tpu_torch.spec import MAX_TABLE_SIZE, LzwSpec
 __all__ = [
     "decode_pass1", "decode_pass1_reference", "decode_pass1_fixed",
     "decode_pass1_variable", "prepare_variable_decode", "unpack12",
+    "variable_pass1", "VariablePass1",
+    "decode_pass2_stride2", "decode_pass2_stride2_reference",
+    "decode_variable_all_device", "decode_fixed_all_device",
     "KIND_COPY", "KIND_LIT", "KIND_HOLE", "MAX_BLOCK",
 ]
 
@@ -36,6 +46,7 @@ KIND_HOLE = 2
 
 MAX_BLOCK = 1 << 17  # descriptor payload bound (17 bits)
 THREADS_PER_CTA = 8  # lanes per warp, as the encoder
+PASS2_THREADS_PER_CTA = 256  # one thread per code slot
 
 
 def unpack12(payloads: torch.Tensor, plens: torch.Tensor, little: bool):
@@ -86,7 +97,7 @@ def _check_inputs(codes, n_codes, sched, block_size):
 
 def decode_pass1(codes: torch.Tensor, n_codes: torch.Tensor,
                  spec: LzwSpec | None, block_size: int,
-                 sched: torch.Tensor | None = None):
+                 sched: torch.Tensor | None = None, pair2: bool = False):
     """Pass 1 over dense codes.
 
     Args:
@@ -96,9 +107,14 @@ def decode_pass1(codes: torch.Tensor, n_codes: torch.Tensor,
       block_size: decoded block bound (<= MAX_BLOCK).
       sched:   i32[2, S] schedule rows (next index - 1, epoch start) for a
                variable spec (:func:`prepare_variable_decode`), else None.
+      pair2:   also return the stride-2 pair rows i32[N, S] that
+               :func:`decode_pass2_stride2` walks: row t describes the entry
+               created at step t (``done<<28 | prefix(p)<<16 | suffix(p)<<8
+               | suffix(c)``), 0 where none was.
     Returns:
-      (words i32[N, S], totals i32[N], err i32[N], err_code i32[N]); err 1
-      is a code beyond the next index, err 2 an output overflow.
+      (words i32[N, S], totals i32[N], err i32[N], err_code i32[N]), plus
+      the pair rows last when ``pair2``; err 1 is a code beyond the next
+      index, err 2 an output overflow.
 
     CPU tensors run :func:`decode_pass1_reference`; CUDA tensors run the
     kernel, and anything else raises.
@@ -108,7 +124,8 @@ def decode_pass1(codes: torch.Tensor, n_codes: torch.Tensor,
         raise ValueError("sched is required for, and only for, variable specs")
     _check_inputs(codes, n_codes, sched, block_size)
     if codes.device.type == "cpu":
-        return decode_pass1_reference(codes, n_codes, spec, block_size, sched)
+        return decode_pass1_reference(codes, n_codes, spec, block_size, sched,
+                                      pair2)
     if codes.device.type != "cuda":
         raise ValueError(f"unsupported device {codes.device}")
     alphabet, first_free = _table_params(spec)
@@ -117,26 +134,31 @@ def decode_pass1(codes: torch.Tensor, n_codes: torch.Tensor,
     fn = build.load("decode_pass1").decode_pass1_launch
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 5
-                   + [ctypes.c_void_p] * 7 + [ctypes.c_int, ctypes.c_void_p])
+                   + [ctypes.c_void_p] * 8 + [ctypes.c_int, ctypes.c_void_p])
     with torch.cuda.device(dev):
         planes = torch.empty((2, N, MAX_TABLE_SIZE), dtype=torch.int32,
                              device=dev)
         words = torch.empty((N, S), dtype=torch.int32, device=dev)
+        pair = (torch.empty((N, S), dtype=torch.int32, device=dev)
+                if pair2 else None)
         stats = torch.empty((3, N), dtype=torch.int32, device=dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(codes.data_ptr(), n_codes.data_ptr(), N, S, block_size,
                 alphabet, first_free,
                 None if sched is None else sched.data_ptr(),
                 planes[0].data_ptr(), planes[1].data_ptr(), words.data_ptr(),
+                None if pair is None else pair.data_ptr(),
                 stats[0].data_ptr(), stats[1].data_ptr(), stats[2].data_ptr(),
                 THREADS_PER_CTA, stream)
     build.check_launch("decode_pass1", rc)
-    return words, stats[0], stats[1], stats[2]
+    out = (words, stats[0], stats[1], stats[2])
+    return out + (pair,) if pair2 else out
 
 
 def decode_pass1_reference(codes: torch.Tensor, n_codes: torch.Tensor,
                            spec: LzwSpec | None, block_size: int,
-                           sched: torch.Tensor | None = None):
+                           sched: torch.Tensor | None = None,
+                           pair2: bool = False):
     """Plain PyTorch version of :func:`decode_pass1`.
 
     A lockstep loop over code ordinals, vectorised over blocks, mirroring
@@ -154,9 +176,15 @@ def decode_pass1_reference(codes: torch.Tensor, n_codes: torch.Tensor,
                           device=dev)
     tab_first = torch.zeros_like(tab_len)
     tab_src = torch.zeros_like(tab_len)
+    tab_pfx = torch.zeros_like(tab_len)
+    tab_sfx = torch.zeros_like(tab_len)
     words = torch.empty((N, S), dtype=torch.int64, device=dev)
+    pair = torch.zeros((N, S), dtype=torch.int64, device=dev)
     z = torch.zeros(N, dtype=torch.int64, device=dev)
-    prev_len, prev_first, off, err, err_code = z, z, z, z, z
+    prev_len, prev_first, off, err, err_code, prev_code = z, z, z, z, z, z
+    # (prefix << 8 | suffix) of the code consumed at the previous step, -1
+    # after a root or literal.
+    pps = torch.full((N,), -1, dtype=torch.int64, device=dev)
     nxt = torch.full((N,), first_free, dtype=torch.int64, device=dev)
     sched_h = None if sched is None else sched.cpu().numpy()
 
@@ -181,6 +209,8 @@ def decode_pass1_reference(codes: torch.Tensor, n_codes: torch.Tensor,
         len_c = torch.where(lookup, tab_len[rows, c], 0)
         first_c = torch.where(lookup, tab_first[rows, c], 0)
         src_d = torch.where(lookup, tab_src[rows, c], 0)
+        pfx_c = torch.where(lookup, tab_pfx[rows, c], 0)
+        sfx_c = torch.where(lookup, tab_sfx[rows, c], 0)
 
         length = torch.where(is_lit, 1, torch.where(kwkwk, prev_len + 1,
                                                     len_c))
@@ -209,32 +239,48 @@ def decode_pass1_reference(codes: torch.Tensor, n_codes: torch.Tensor,
         tab_len[rows, at] = (prev_len + 1) & 0xFFF
         tab_first[rows, at] = prev_first & 0xFF
         tab_src[rows, at] = off - prev_len
+        tab_pfx[rows, at] = prev_code & 0xFFF
+        tab_sfx[rows, at] = first & 0xFF
+        p2 = torch.where(
+            pps < 0, (1 << 28) | ((prev_code & 0xFF) << 8) | (first & 0xFF),
+            ((pps >> 8) << 16) | ((pps & 0xFF) << 8) | (first & 0xFF))
+        pair[:, t] = torch.where(ins, p2, 0)
         if sched_h is None:
             nxt = nxt + ins.to(torch.int64)
 
+        pps_new = torch.where(
+            is_lit, -1,
+            torch.where(kwkwk, (prev_code << 8) | (first & 0xFF),
+                        (pfx_c << 8) | sfx_c))
+        pps = torch.where(ok, pps_new, pps)
         off = off + torch.where(ok, length, 0)
         prev_len = torch.where(ok, length, prev_len)
         prev_first = torch.where(ok, first, prev_first)
+        prev_code = torch.where(ok, code, prev_code)
 
     # Reinterpret the low 32 bits as i32, as the TPU kernel's i32 words.
     words = torch.where(words >= 1 << 31, words - (1 << 32), words)
-    return (words.to(torch.int32), off.to(torch.int32), err.to(torch.int32),
-            err_code.to(torch.int32))
+    out = (words.to(torch.int32), off.to(torch.int32), err.to(torch.int32),
+           err_code.to(torch.int32))
+    return out + (pair.to(torch.int32),) if pair2 else out
 
 
 def decode_pass1_fixed(payloads: torch.Tensor, plens: torch.Tensor,
-                       block_size: int, little: bool = True):
+                       block_size: int, little: bool = True,
+                       pair2: bool = False):
     """Fixed-12 pass 1 from payload bytes (``decode_pass1_fixed_tpu``).
 
     payloads u8[N, PB] zero-padded with PB % 3 == 0, plens i32[N].  Returns
-    (words i32[N, S], n_codes, totals, err, err_code, codes); ``codes`` maps
-    a corrupt descriptor back to its wire code.
+    (words i32[N, S], n_codes, totals, err, err_code, codes), plus the
+    stride-2 pair rows last when ``pair2``; ``codes`` maps a corrupt
+    descriptor back to its wire code.
     """
     codes, n_codes = unpack12(payloads, plens, little)
-    words, totals, err, err_code = decode_pass1(
-        codes.contiguous(), n_codes.contiguous(), None, block_size
+    codes, n_codes = codes.contiguous(), n_codes.contiguous()
+    words, totals, err, err_code, *pair = decode_pass1(
+        codes, n_codes, None, block_size, pair2=pair2
     )
-    return words, n_codes, totals, err, err_code, codes
+    return (words, n_codes, totals, err, err_code, codes, *pair)
 
 
 def prepare_variable_decode(payloads_np: np.ndarray, plens_np, spec: LzwSpec):
@@ -257,24 +303,230 @@ def prepare_variable_decode(payloads_np: np.ndarray, plens_np, spec: LzwSpec):
     return counts, strict, sched_arr, S
 
 
+def _no_stage(name: str):
+    return contextlib.nullcontext()
+
+
+class VariablePass1(NamedTuple):
+    """Pass 1 of a strict variable batch (:func:`variable_pass1`)."""
+
+    dense: torch.Tensor     # i32[N, S] wire codes, on the device
+    counts: np.ndarray      # i64[N] recovered code counts
+    counts_t: torch.Tensor  # the same, i32 on the device
+    sched: torch.Tensor     # i32[2, S] schedule rows, on the device
+    strict: np.ndarray      # bool[N]; False rows need a general decoder
+    words: torch.Tensor
+    totals: torch.Tensor
+    err: torch.Tensor
+    err_code: torch.Tensor
+    pair: torch.Tensor | None  # stride-2 pair rows when asked for
+
+
+def variable_pass1(payloads_np: np.ndarray, plens_np, spec: LzwSpec,
+                   block_size: int, device="cpu", pair2: bool = False,
+                   stage=None) -> VariablePass1:
+    """Strict variable-flavor pass 1 from payload bytes
+    (``_variable_pass1_from_payloads``): host count recovery, H2D, device
+    unpack, :func:`decode_pass1`.
+
+    ``stage(name)``, when given, is a context manager timing each step
+    (``dec_count_recovery``, ``dec_h2d``, ``dec_unpack``, ``dec_pass1``).
+    """
+    stage = stage or _no_stage
+    with stage("dec_count_recovery"):
+        counts, strict, sched_arr, S = prepare_variable_decode(
+            payloads_np, plens_np, spec
+        )
+    with stage("dec_h2d"):
+        payloads = torch.from_numpy(np.ascontiguousarray(payloads_np)).to(
+            device)
+        counts_t = torch.from_numpy(counts.astype(np.int32)).to(device)
+        sched_t = torch.from_numpy(sched_arr).to(device)
+    with stage("dec_unpack"):
+        dense, data_ok = _sched.unpack_variable_device(payloads, counts_t,
+                                                       spec, S)
+    with stage("dec_pass1"):
+        words, totals, err, err_code, *pair = decode_pass1(
+            dense, counts_t, spec, block_size, sched_t, pair2=pair2
+        )
+    strict = strict & data_ok.cpu().numpy()
+    return VariablePass1(dense, counts, counts_t, sched_t, strict, words,
+                         totals, err, err_code, pair[0] if pair2 else None)
+
+
 def decode_pass1_variable(payloads_np: np.ndarray, plens_np, spec: LzwSpec,
                           block_size: int, device="cpu"):
     """Variable-flavor strict-stream pass 1 (``decode_pass1_variable_tpu``).
 
-    Recovers counts on the host, moves the payload bytes to ``device``,
-    unpacks the dense codes there and runs :func:`decode_pass1`.  Returns
-    (words i32[N, S], n_codes i64[N], totals, err, err_code, strict bool[N]);
-    rows whose ``strict`` is False need a general decoder.
+    Returns (words i32[N, S], n_codes i64[N], totals, err, err_code, strict
+    bool[N]); rows whose ``strict`` is False need a general decoder.
     """
-    counts, strict, sched_arr, S = prepare_variable_decode(
-        payloads_np, plens_np, spec
-    )
-    payloads = torch.from_numpy(np.ascontiguousarray(payloads_np)).to(device)
-    counts_t = torch.from_numpy(counts.astype(np.int32)).to(device)
-    dense, data_ok = _sched.unpack_variable_device(payloads, counts_t, spec, S)
-    words, totals, err, err_code = decode_pass1(
-        dense, counts_t, spec, block_size,
-        torch.from_numpy(sched_arr).to(device),
-    )
-    strict = strict & data_ok.cpu().numpy()
-    return words, counts, totals, err, err_code, strict
+    p = variable_pass1(payloads_np, plens_np, spec, block_size, device)
+    return p.words, p.counts, p.totals, p.err, p.err_code, p.strict
+
+
+def _word_ends(words: torch.Tensor, n_codes: torch.Tensor) -> torch.Tensor:
+    """Inclusive prefix sum of the word lengths, i32[N, S]: word t of a
+    block fills bytes [ends[t-1], ends[t]).  Holes and slots past n_codes
+    count 0 (``_epoch_totals``, decode_pallas.py:698-709)."""
+    S = words.shape[1]
+    live = (torch.arange(S, device=words.device)[None, :]
+            < n_codes.to(torch.int64)[:, None]) & ((words >> 29) != KIND_HOLE)
+    lens = torch.where(live, (words >> 17) & 0xFFF, 0)
+    return torch.cumsum(lens, dim=1, dtype=torch.int32)
+
+
+def _check_pass2_inputs(codes, words, pair2, n_codes, sched, block_size):
+    _check_inputs(codes, n_codes, sched, block_size)
+    for name, t in (("words", words), ("pair2", pair2)):
+        build.require_tensor(t, name, torch.int32, 2, codes.device)
+        if t.shape != codes.shape:
+            raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
+                             f"{tuple(codes.shape)}")
+
+
+def decode_pass2_stride2(codes: torch.Tensor, words: torch.Tensor,
+                         pair2: torch.Tensor, n_codes: torch.Tensor,
+                         block_size: int, spec: LzwSpec | None = None,
+                         sched: torch.Tensor | None = None) -> torch.Tensor:
+    """All-device pass 2: pass-1 outputs -> decoded bytes.
+
+    Args:
+      codes:   i32[N, S] dense wire codes (pass 1's input).
+      words:   i32[N, S] pass-1 descriptors; their lengths place each word.
+      pair2:   i32[N, S] pass-1 stride-2 pair rows (``pair2=True``).
+      n_codes: i32[N] codes per block.
+      block_size: output width; every block's total must fit.
+      spec, sched: as for :func:`decode_pass1` (code c of step t lives at
+        pair row ``epoch_start(t) + 1 + c - first_free``; ``c - 255`` for
+        fixed-12).
+    Returns u8[N, block_size], zero past each block's total.
+
+    The JAX package's ``decode_pass2_stride2`` takes ``totals`` where this
+    takes ``words``: the offsets of the words replace its reversed walk.
+    CPU tensors run :func:`decode_pass2_stride2_reference`; CUDA tensors
+    run the kernel, and anything else raises.
+    """
+    variable = spec is not None and spec.variable
+    if variable != (sched is not None):
+        raise ValueError("sched is required for, and only for, variable specs")
+    _check_pass2_inputs(codes, words, pair2, n_codes, sched, block_size)
+    if codes.device.type == "cpu":
+        return decode_pass2_stride2_reference(codes, words, pair2, n_codes,
+                                              block_size, spec, sched)
+    if codes.device.type != "cuda":
+        raise ValueError(f"unsupported device {codes.device}")
+    alphabet, first_free = _table_params(spec)
+    N, S = codes.shape
+    dev = codes.device
+    fn = build.load("decode_pass2").decode_pass2_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+                   + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p])
+    with torch.cuda.device(dev):
+        ends = _word_ends(words, n_codes)
+        out = torch.zeros((N, block_size), dtype=torch.uint8, device=dev)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = fn(codes.data_ptr(), ends.data_ptr(), pair2.data_ptr(),
+                n_codes.data_ptr(),
+                None if sched is None else sched.data_ptr(),
+                N, S, block_size, alphabet, first_free, out.data_ptr(),
+                PASS2_THREADS_PER_CTA, stream)
+    build.check_launch("decode_pass2", rc)
+    return out
+
+
+def decode_pass2_stride2_reference(codes: torch.Tensor, words: torch.Tensor,
+                                   pair2: torch.Tensor, n_codes: torch.Tensor,
+                                   block_size: int,
+                                   spec: LzwSpec | None = None,
+                                   sched: torch.Tensor | None = None):
+    """Plain PyTorch version of :func:`decode_pass2_stride2`.
+
+    Vectorised over code slots, one loop iteration per chain step: each
+    slot writes its word's last bytes first, two per pair row, as the
+    kernel's threads do.
+    """
+    alphabet, first_free = _table_params(spec)
+    N, S = codes.shape
+    dev = codes.device
+    B = block_size
+    ends = _word_ends(words, n_codes).to(torch.int64).clamp(max=B)
+    starts = torch.cat(
+        [torch.zeros((N, 1), dtype=torch.int64, device=dev), ends[:, :-1]],
+        dim=1)
+    t = torch.arange(S, device=dev)
+    est = (sched[1].to(torch.int64) if sched is not None
+           else torch.zeros(S, dtype=torch.int64, device=dev))
+    codes = codes.to(torch.int64)
+    pair = pair2.to(torch.int64).reshape(-1)
+    flat = torch.zeros(N * B, dtype=torch.uint8, device=dev)
+    valid = ends > starts
+    lit = valid & ((t == est)[None, :] | (codes < alphabet))
+    n_i, t_i = lit.nonzero(as_tuple=True)
+    c = codes[n_i, t_i]
+    flat[n_i * B + starts[n_i, t_i]] = torch.where(
+        c < alphabet, c, 0).to(torch.uint8)
+
+    n_i, t_i = (valid & ~lit).nonzero(as_tuple=True)
+    node = codes[n_i, t_i]
+    pos = ends[n_i, t_i] - 1
+    lo = starts[n_i, t_i]
+    base = est[t_i] + 1 - first_free
+    while n_i.numel():
+        root = node < alphabet
+        flat[n_i[root] * B + pos[root]] = node[root].to(torch.uint8)
+        row = base + node
+        keep = ~root & (row >= 0) & (row < S)
+        n_i, node, pos, lo, base, row = (
+            a[keep] for a in (n_i, node, pos, lo, base, row))
+        d = pair[n_i * S + row]
+        flat[n_i * B + pos] = (d & 0xFF).to(torch.uint8)
+        pos = pos - 1
+        two = pos >= lo
+        flat[n_i[two] * B + pos[two]] = ((d[two] >> 8) & 0xFF).to(
+            torch.uint8)
+        pos = pos - 1
+        keep = two & ((d >> 28) == 0) & (pos >= lo)
+        node = (d >> 16) & 0xFFF
+        n_i, node, pos, lo, base = (
+            a[keep] for a in (n_i, node, pos, lo, base))
+    return flat.reshape(N, B)
+
+
+def decode_variable_all_device(payloads_np: np.ndarray, plens_np,
+                               spec: LzwSpec, block_size: int,
+                               device="cpu", stage=None):
+    """Whole strict variable-flavor decode on ``device``
+    (``decode_variable_all_device``): :func:`variable_pass1` with stride-2
+    pair rows, then pass 2 (stage ``dec_pass2``).
+
+    Returns (blocks u8[N, block_size], totals, errs, err_codes, strict
+    bool[N]); rows whose ``strict`` is False need a general decoder.
+    """
+    p = variable_pass1(payloads_np, plens_np, spec, block_size, device,
+                       pair2=True, stage=stage)
+    with (stage or _no_stage)("dec_pass2"):
+        out = decode_pass2_stride2(p.dense, p.words, p.pair, p.counts_t,
+                                   block_size, spec, p.sched)
+    return out, p.totals, p.err, p.err_code, p.strict
+
+
+def decode_fixed_all_device(payloads: torch.Tensor, plens: torch.Tensor,
+                            block_size: int, little: bool = True,
+                            stage=None):
+    """Whole fixed-12 decode on the payloads' device: pass 1 with stride-2
+    pair rows, then pass 2 (the JAX package's ``decode_pass1_fixed_tpu(
+    pair2=True)`` + ``decode_pass2_stride2``); ``stage`` as for
+    :func:`variable_pass1` (``dec_pass1``, ``dec_pass2``).
+
+    Returns (blocks u8[N, block_size], totals, errs, err_codes).
+    """
+    stage = stage or _no_stage
+    with stage("dec_pass1"):
+        words, n_codes, totals, err, err_code, codes, pair = (
+            decode_pass1_fixed(payloads, plens, block_size, little,
+                               pair2=True))
+    with stage("dec_pass2"):
+        out = decode_pass2_stride2(codes, words, pair, n_codes, block_size)
+    return out, totals, err, err_code

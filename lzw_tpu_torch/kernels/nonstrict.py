@@ -1,0 +1,312 @@
+"""Foreign (early-CLEAR) variable streams decoded on the device.
+
+Port of ``lzw_tpu/kernels/nonstrict.py``.  The reference's decoder takes a
+CLEAR at any position (`decoder.rs:222-227`); the strict-schedule decode
+needs CLEARs exactly at table-full.  A foreign stream factors at its CLEARs
+into dictionary epochs, each of which follows the static schedule on its
+own (width bumps depend only on the code count since the last CLEAR, and an
+epoch cannot outlive the table-full ordinal, past which the reference
+demands a CLEAR, `decoder.rs:281-283`).  So :func:`parse_epochs` splits the
+streams at their CLEARs on the host (numpy, vectorised per epoch
+generation; the JAX package's function, unchanged), and every epoch decodes
+on the device as a strict sub-stream through pass 1 and pass 2.
+
+Left out against the JAX package: the padding of the sub-stream count to
+kernel groups and of the output width to pass-2 buckets.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import functools
+
+import numpy as np
+import torch
+
+from lzw_tpu_torch.kernels import schedule as _sched
+from lzw_tpu_torch.kernels.decode import decode_pass1, decode_pass2_stride2
+from lzw_tpu_torch.spec import (
+    LzwSpec, MAX_WIDTH, MissingClearCodeError, TruncatedStreamError,
+    UnexpectedCodeError,
+)
+
+__all__ = ["parse_epochs", "split_substreams",
+           "decode_variable_nonstrict_device"]
+
+
+def _full_epoch_len(spec: LzwSpec) -> int:
+    """Data codes in a table-full epoch, derived from the schedule itself.
+
+    The early-increment strategies (TIFF) trip table-full one code sooner
+    (`lib.rs:84-91` applied at `decoder.rs:277-279`), so the bound is the
+    position of the schedule's first mandatory CLEAR — not a hardcoded
+    ``4096 - first_free + 1``, which misparses multi-epoch TIFF streams.
+    """
+    sched = _sched.emission_schedule(spec, 4200)  # > any epoch length
+    return int(np.nonzero(sched.clear_after)[0][0]) + 1
+
+
+def _read_sym(mat, rows, bit_offs, width: int, little: bool):
+    """Read one ``width``-bit symbol per row at absolute bit offsets."""
+    b0 = (bit_offs >> 3).astype(np.int64)
+    sh = (bit_offs & 7).astype(np.int64)
+    if little:
+        w0 = (mat[rows, b0] | (mat[rows, b0 + 1] << 8)
+              | (mat[rows, b0 + 2] << 16))
+        return (w0 >> sh) & ((1 << width) - 1)
+    wbe = ((mat[rows, b0] << 16) | (mat[rows, b0 + 1] << 8)
+           | mat[rows, b0 + 2])
+    return (wbe >> (24 - sh - width)) & ((1 << width) - 1)
+
+
+def _epoch_schedule_tables(spec: LzwSpec, S_e: int):
+    """Widths/bit offsets for data ordinals 0..S_e of ONE epoch, measured
+    from the epoch start (no leading CLEAR)."""
+    sched = _sched.emission_schedule(spec, S_e + 2)
+    widths = sched.widths[: S_e + 1].copy()
+    offs = (sched.bit_off[: S_e + 2] - sched.bit_off[0]).copy()
+    return widths, offs
+
+
+@functools.lru_cache(maxsize=64)
+def _slot_tables(spec: LzwSpec, L: int):
+    """Per-slot extraction tables for epoch-local slots 0..L-1: bit offset,
+    width, value mask, slot end (offset + width) — all static per spec,
+    cached so the per-generation parse loop pays zero schedule work."""
+    widths, offs = _epoch_schedule_tables(spec, max(L, 1))
+    w = widths[:L].astype(np.int32)
+    offs32 = offs[:L].astype(np.int32)
+    return offs32, w, ((1 << w) - 1).astype(np.int32), offs32 + w
+
+
+def _unpack_at(w24, rows, bit_off_rows, spec: LzwSpec, L: int,
+               little: bool):
+    """Unpack epoch-local slots 0..L-1 for each row at absolute per-row
+    bit offsets, from the precombined 24-bit window matrix ``w24``
+    (``w24[i, b]`` = the 3 bytes at b, already endianness-combined).
+
+    One vectorized gather per (row, slot) — widths are <= 12, so 3 bytes
+    cover any alignment — with no intermediate realigned copy, so the
+    generation loop is not bound by per-call overhead.  Returns vals
+    i32[m, L].
+    """
+    offs, w, mask, _end = _slot_tables(spec, L)
+    boff = bit_off_rows.astype(np.int64)[:, None] + offs[None, :]
+    b0 = boff >> 3
+    np.minimum(b0, w24.shape[1] - 1, out=b0)  # clamp: junk past bit_lim is
+    # masked by the slot-end checks downstream
+    sh = (boff & 7).astype(np.int32)
+    acc = w24[rows[:, None], b0]
+    if little:
+        return (acc >> sh) & mask[None]
+    return (acc >> (24 - sh - w[None])) & mask[None]
+
+
+def parse_epochs(payloads, plens, spec: LzwSpec):
+    """Split foreign variable streams into strict per-epoch sub-streams.
+
+    Returns (dense i32[U, S_e_pad], counts i64[U], owner i64[U]) where U
+    sub-streams appear grouped by owner stream in epoch order, plus S_e_pad.
+    Raises :class:`TruncatedStreamError` if any stream ends without EOI.
+    """
+    if not spec.variable:
+        raise ValueError("parse_epochs takes a variable-width spec")
+    payloads = np.asarray(payloads)
+    plens = np.asarray(plens, np.int64)
+    N, PB = payloads.shape
+    mat = np.zeros((N, PB + 8), np.int32)
+    mat[:, :PB] = payloads
+    little = spec.endianness.value == "little"
+    # Pre-combined 3-byte windows: one gather per (row, slot) downstream.
+    if little:
+        w24 = mat[:, :-2] | (mat[:, 1:-1] << 8) | (mat[:, 2:] << 16)
+    else:
+        w24 = (mat[:, :-2] << 16) | (mat[:, 1:-1] << 8) | mat[:, 2:]
+    # Table-full bound on one epoch's data codes, from the schedule (the
+    # early-change strategies bump one code sooner — see _full_epoch_len).
+    S_e = _full_epoch_len(spec)
+    widths, offs = _epoch_schedule_tables(spec, S_e)
+    bit_lim = plens * 8
+
+    # Leading CLEAR is optional in the reference decoder; consume it (and
+    # any immediate repeats) wherever present.
+    bit_off = np.zeros(N, np.int64)
+    active = plens > 0
+    clear, eoi = spec.clear_code, spec.end_code
+    w0 = spec.initial_width
+
+    owners: list[np.ndarray] = []
+    denses: list[np.ndarray] = []
+    counts: list[np.ndarray] = []
+    done = ~active
+    Lq = min(1024, S_e)
+    end_q = _slot_tables(spec, Lq)[3]
+    end_f = _slot_tables(spec, S_e)[3]
+
+    def subset(g_rows, V, L, allow_full, is_term=None):
+        """One epoch for streams ``g_rows`` with unpacked slot values
+        ``V`` covering [0, L].  Slot S_e sits PAST the schedule's
+        mandatory table-full CLEAR (offs jumps the 12-bit gap), so a
+        full epoch advances by offs[S_e] — after verifying the skipped
+        12 bits actually hold CLEAR (or EOI, the fix_eoi table-full
+        ending); anything else is the reference's missing-CLEAR error
+        (`decoder.rs:281-283`)."""
+        m = len(g_rows)
+        sl = V[:, :L]
+        if is_term is None:
+            # A slot's own end is offs + width: offs[j + 1] would include
+            # the mandatory-CLEAR gap at the table-full slot, wrongly
+            # rejecting a terminator that ends the stream exactly there.
+            slot_end = (bit_off[g_rows, None]
+                        + (end_q if L == Lq else end_f)[None, :L])
+            is_term = (((sl == clear) | (sl == eoi))
+                       & (slot_end <= bit_lim[g_rows, None]))
+        has_term = is_term.any(axis=1)
+        fin_gap = np.zeros(m, bool)
+        if allow_full:
+            fullm = (~has_term) & (
+                bit_off[g_rows] + offs[S_e] <= bit_lim[g_rows]
+            )
+            if not (has_term | fullm).all():
+                raise TruncatedStreamError()
+            gi = np.nonzero(fullm)[0]
+            if len(gi):
+                gr = g_rows[gi]
+                gv = _read_sym(
+                    mat, gr, bit_off[gr] + offs[S_e] - MAX_WIDTH,
+                    MAX_WIDTH, little,
+                )
+                if ((gv != clear) & (gv != eoi)).any():
+                    raise MissingClearCodeError()
+                fin_gap[gi] = gv == eoi
+        k = np.where(
+            has_term, is_term.argmax(axis=1), S_e
+        ).astype(np.int64)
+        term_val = np.where(
+            has_term, sl[np.arange(m), np.minimum(k, L - 1)], clear
+        )
+        # Record this epoch (k may be 0 for CLEAR CLEAR runs).
+        owners.append(g_rows.astype(np.int64))
+        counts.append(k)
+        sel = np.arange(L)[None, :] < k[:, None]
+        denses.append(np.where(sel, sl, 0))
+        adv = np.where(has_term, offs[k] + widths[k], offs[S_e])
+        bit_off[g_rows] = bit_off[g_rows] + adv
+        fin = (has_term & (term_val == eoi)) | fin_gap
+        done[g_rows[fin]] = True
+
+    guard = 0
+    while not done.all():
+        guard += 1
+        if guard > (8 * PB) // w0 + 2:
+            raise TruncatedStreamError()
+        rows = np.nonzero(~done)[0]
+        # Two-phase unpack: most foreign epochs terminate within ~1k
+        # codes, so a quick prefix pass resolves them at prefix width and
+        # only the stragglers pay the full table-bound unpack.
+        vq = _unpack_at(w24, rows, bit_off[rows], spec, Lq, little)
+        endq = bit_off[rows, None] + end_q[None, :]
+        is_term_q = (((vq == clear) | (vq == eoi))
+                     & (endq <= bit_lim[rows, None]))
+        termq = is_term_q.any(axis=1)
+        qi = np.nonzero(termq)[0]
+        fi = np.nonzero(~termq)[0]
+        if len(qi):
+            subset(rows[qi], vq[qi], Lq, False, is_term_q[qi])
+        if len(fi):
+            # Stragglers (longer than the quick window) pay the full
+            # table-bound unpack; typically a small minority.
+            rf = rows[fi]
+            vf = _unpack_at(w24, rf, bit_off[rf], spec, S_e, little)
+            subset(rf, vf, S_e, True)
+
+    if not owners:
+        U = 0
+        S_pad = 512
+        return (np.zeros((0, S_pad), np.int32), np.zeros(0, np.int64),
+                np.zeros(0, np.int64), S_pad)
+    owner = np.concatenate(owners)
+    cnt = np.concatenate(counts)
+    W = max(d.shape[1] for d in denses)
+    U_all = sum(d.shape[0] for d in denses)
+    dense = np.zeros((U_all, W), np.int32)
+    u = 0
+    for d in denses:
+        dense[u : u + d.shape[0], : d.shape[1]] = d
+        u += d.shape[0]
+    # Order sub-streams by (owner, generation): generations were appended
+    # in order, and concatenation preserves per-owner order under a stable
+    # sort on owner.
+    order = np.argsort(owner, kind="stable")
+    owner, cnt, dense = owner[order], cnt[order], dense[order]
+    # Drop empty epochs (k == 0) — they decode to nothing.
+    keep = cnt > 0
+    owner, cnt, dense = owner[keep], cnt[keep], dense[keep]
+    S_pad = max(512, ((int(cnt.max(initial=1)) + 511) // 512) * 512)
+    return dense[:, :S_pad].copy() if dense.shape[1] >= S_pad else np.pad(
+        dense, ((0, 0), (0, S_pad - dense.shape[1]))
+    ), cnt, owner, S_pad
+
+
+def split_substreams(payloads, plens, spec: LzwSpec):
+    """:func:`parse_epochs` plus the sub-streams' schedule rows: each
+    sub-stream is one epoch, so its rows are those of a stream's first
+    epoch, and its code slots stop at the longest count.
+
+    Returns (dense i32[U, S], counts i64[U], owner i64[U], sched_arr
+    i32[2, S]); U may be 0.
+    """
+    dense, cnt, owner, _ = parse_epochs(payloads, plens, spec)
+    S = int(cnt.max(initial=1))
+    sched = _sched.emission_schedule(spec, S)
+    sched_arr = np.stack([sched.nxt_of[:S] - 1,
+                          sched.epoch_start[:S]]).astype(np.int32)
+    return np.ascontiguousarray(dense[:, :S]), cnt, owner, sched_arr
+
+
+def decode_variable_nonstrict_device(payloads, plens, spec: LzwSpec,
+                                     block_size: int, device="cpu",
+                                     stage=None) -> list[bytes]:
+    """Decode foreign early-CLEAR streams on ``device`` by resegmentation.
+
+    ``payloads`` u8[N, PB] and ``plens`` are numpy.  Returns the N decoded
+    streams as ``bytes``.  Raises :class:`TruncatedStreamError` or
+    :class:`MissingClearCodeError` from the parse, and
+    :class:`UnexpectedCodeError` with the offending code from pass 1.
+    ``stage(name)``, when given, is a context manager timing each stage
+    (``dec_parse_epochs``, ``dec_h2d``, ``dec_pass1``, ``dec_pass2``,
+    ``dec_d2h_out``).
+    """
+    stage = stage or (lambda name: contextlib.nullcontext())
+    N = payloads.shape[0]
+    with stage("dec_parse_epochs"):
+        dense, cnt, owner, sched_arr = split_substreams(payloads, plens, spec)
+    if dense.shape[0] == 0:
+        return [b""] * N
+    with stage("dec_h2d"):
+        dense_t = torch.from_numpy(dense).to(device)
+        cnt_t = torch.from_numpy(cnt.astype(np.int32)).to(device)
+        sched_t = torch.from_numpy(sched_arr).to(device)
+    with stage("dec_pass1"):
+        words, totals, errs, err_codes, pair = decode_pass1(
+            dense_t, cnt_t, spec, block_size, sched_t, pair2=True
+        )
+    errs = errs.cpu().numpy()
+    if errs.any():
+        i = int(np.argmax(errs != 0))
+        raise UnexpectedCodeError(int(err_codes[i]))
+    te = totals.cpu().numpy().astype(np.int64)
+    with stage("dec_pass2"):
+        out = decode_pass2_stride2(dense_t, words, pair, cnt_t,
+                                   max(int(te.max()), 1), spec, sched_t)
+        # Row-major masked select: the sub-streams' bytes back to back, in
+        # (owner, epoch) order.
+        width = out.shape[1]
+        flat = out[torch.arange(width, device=out.device)[None, :]
+                   < totals[:, None]]
+    with stage("dec_d2h_out"):
+        flat = flat.cpu().numpy()
+    ends = np.cumsum(np.bincount(owner, weights=te, minlength=N)).astype(
+        np.int64)
+    starts = np.concatenate([[0], ends[:-1]])
+    return [flat[a:b].tobytes() for a, b in zip(starts, ends)]

@@ -46,6 +46,7 @@ _ERR_TRUNCATED = -6
 
 _lock = threading.Lock()
 _runtime: "NativeRuntime | None" = None
+_build_error: "Exception | None" = None
 
 _u8p = ctypes.POINTER(ctypes.c_uint8)
 _u32p = ctypes.POINTER(ctypes.c_uint32)
@@ -247,9 +248,17 @@ class NativeRuntime:
 
 
 def get_runtime() -> NativeRuntime:
-    """Build-once, process-wide native runtime; raises when it cannot build."""
-    global _runtime
+    """Build-once, process-wide native runtime; raises when it cannot build,
+    and raises the same error again on every later call without retrying
+    the compiler."""
+    global _runtime, _build_error
     with _lock:
+        if _build_error is not None:
+            raise _build_error
         if _runtime is None:
-            _runtime = NativeRuntime()
+            try:
+                _runtime = NativeRuntime()
+            except (OSError, subprocess.CalledProcessError) as exc:
+                _build_error = exc
+                raise
         return _runtime

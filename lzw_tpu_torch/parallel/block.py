@@ -7,22 +7,30 @@ gathered in submission order.
 
 Encode: host prep -> H2D -> encode-parse kernel -> device bit-pack -> D2H
 of the payload bytes.  Decode: host count recovery -> H2D -> device unpack
--> pass-1 kernel -> D2H of the descriptors -> host ``apply_words`` (the
-native runtime).  On a CPU device the kernels' plain versions run.
+-> pass-1 kernel, then pass 2 by the ``pass2`` route:
+
+* host: D2H of the descriptors -> the native runtime's ``apply_words``;
+* device: the pass-2 kernel -> D2H of the decoded bytes.  Non-strict
+  (foreign early-CLEAR) streams are split at their CLEARs on the host and
+  decode on the device too (:mod:`lzw_tpu_torch.kernels.nonstrict`).
+
+By default a CUDA codec takes the device route for strict blocks and the
+native runtime's threaded decoder for non-strict ones.
+
+On a CPU device the kernels' plain versions run.
 
 Left out against the JAX codec: the ``shard_map`` mesh and its padding of
 the batch to power-of-two rows and kernel groups (the port runs on one
 device; spreading block rows over GPUs is later work), the lax-codec path,
 and the TPU's "non-cell block size -> native encode" route (the CUDA kernel
-takes any block size).  The all-device pass 2 and the device decode of
-non-strict streams are not ported yet: those streams decode on the native
-runtime, which the port's decode therefore needs.
+takes any block size).
 """
 
 from __future__ import annotations
 
 import contextlib
 import math
+import subprocess
 import time
 
 import numpy as np
@@ -30,10 +38,12 @@ import torch
 
 from lzw_tpu_torch.kernels import schedule as _sched
 from lzw_tpu_torch.kernels.decode import (
-    MAX_BLOCK, decode_pass1, decode_pass1_fixed, prepare_variable_decode,
+    MAX_BLOCK, decode_fixed_all_device, decode_pass1_fixed,
+    decode_variable_all_device, variable_pass1,
 )
 from lzw_tpu_torch.kernels.encode import encode_blocks_codes, pack12
-from lzw_tpu_torch.native.runtime import get_runtime
+from lzw_tpu_torch.kernels.nonstrict import decode_variable_nonstrict_device
+from lzw_tpu_torch.native.runtime import NativeRuntime, get_runtime
 from lzw_tpu_torch.parallel import framing
 from lzw_tpu_torch.spec import (
     Endianness,
@@ -50,6 +60,7 @@ DEFAULT_BLOCK_SIZE = 1 << 16
 # The fixed flavor freezes its dictionary after 4096 entries, so small blocks
 # re-learn and usually compress better.
 DEFAULT_FIXED_BLOCK_SIZE = 1 << 12
+PASS2_ROUTES = ("auto", "device", "host")
 
 
 def _read_exact(src, n: int) -> bytes:
@@ -78,12 +89,21 @@ class BlockParallelCodec:
         (default: on for CUDA devices, where the kernels are in the path).
       stage_times: a dict that, when given, accumulates the seconds of each
         pipeline stage; each stage then ends in a device synchronisation.
+      pass2: where decode resolves pass 1's descriptors.  "auto" (the
+        default) picks from the device: on CUDA the pass-2 kernel for
+        strict blocks and the native ``decode_blocks`` for non-strict ones;
+        elsewhere the native runtime for both; the device route wherever
+        the runtime cannot build.  "host" forces the native runtime's
+        ``apply_words`` (raises when it cannot build); "device" forces the
+        pass-2 kernel for every block, strict or not, and decode never
+        touches the native runtime (block_size at most ``MAX_BLOCK``).
     """
 
     def __init__(self, spec: LzwSpec, block_size: int | None = None,
                  device: str | torch.device = "cuda",
                  verify: bool | None = None,
-                 stage_times: dict[str, float] | None = None):
+                 stage_times: dict[str, float] | None = None,
+                 pass2: str = "auto"):
         spec.validate()
         if block_size is None:
             block_size = (
@@ -91,6 +111,13 @@ class BlockParallelCodec:
             )
         if block_size <= 0:
             raise ValueError("block_size must be positive")
+        if pass2 not in PASS2_ROUTES:
+            raise ValueError(f"pass2 {pass2!r} is not one of {PASS2_ROUTES}")
+        if pass2 == "device" and block_size > MAX_BLOCK:
+            raise ValueError(
+                f"pass2='device' decodes blocks of at most {MAX_BLOCK} bytes, "
+                f"not {block_size}"
+            )
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
@@ -103,6 +130,7 @@ class BlockParallelCodec:
         self.verify = self.device.type == "cuda" if verify is None else bool(
             verify)
         self.stage_times = stage_times
+        self.pass2 = pass2
 
     @contextlib.contextmanager
     def _stage(self, name: str):
@@ -207,12 +235,14 @@ class BlockParallelCodec:
         if self.block_size <= MAX_BLOCK:
             if self.spec.variable:
                 # None: a non-strict (foreign early-CLEAR) stream.
-                out = self._decode_variable_device(header, payloads)
+                out = self._decode_variable(payloads)
+                if out is None and self._native() is None:
+                    out = self._decode_variable_nonstrict(payloads)
             else:
-                out = self._decode_fixed_device(header, payloads)
+                out = self._decode_fixed(payloads)
         if out is None:
-            # Blocks past the descriptor bound, or non-strict streams: the
-            # threaded native runtime.
+            # Blocks past the descriptor bound, or non-strict streams with
+            # the native runtime at hand: its threaded decoder.
             out = get_runtime().decode_blocks(
                 [bytes(p) for p in payloads], self.spec, self.block_size
             )
@@ -223,6 +253,28 @@ class BlockParallelCodec:
             )
         return out
 
+    def _native(self) -> NativeRuntime | None:
+        """The native runtime, or None with ``pass2="device"`` or when
+        ``pass2="auto"`` and it cannot build."""
+        if self.pass2 == "device":
+            return None
+        if self.pass2 == "host":
+            return get_runtime()
+        try:
+            return get_runtime()
+        except (OSError, subprocess.CalledProcessError):
+            return None
+
+    def _host_pass2(self) -> NativeRuntime | None:
+        """The runtime that resolves strict blocks' descriptors, or None for
+        the pass-2 kernel.  "auto" takes the kernel on a CUDA device (it
+        beat ``apply_words`` end to end on every strict container measured
+        on the H100, PERF.md) and the host off it, when the runtime
+        builds."""
+        if self.pass2 == "auto" and self.device.type == "cuda":
+            return None
+        return self._native()
+
     def _payload_matrix(self, payloads, width: int):
         mat = np.zeros((len(payloads), width), np.uint8)
         plens = np.zeros(len(payloads), np.int32)
@@ -231,65 +283,81 @@ class BlockParallelCodec:
             plens[i] = len(p)
         return mat, plens
 
-    def _decode_fixed_device(self, header, payloads) -> bytes:
-        n = header.n_blocks
+    def _decode_fixed(self, payloads) -> bytes:
+        rt = self._host_pass2()
         with self._stage("dec_host_prep"):
             width = ((max(len(p) for p in payloads) + 2) // 3) * 3
             mat, plens = self._payload_matrix(payloads, max(width, 3))
         with self._stage("dec_h2d"):
             mat_t = torch.from_numpy(mat).to(self.device)
             plens_t = torch.from_numpy(plens).to(self.device)
+        little = self.spec.endianness is Endianness.LITTLE
+        if rt is None:
+            out, totals, errs, err_codes = decode_fixed_all_device(
+                mat_t, plens_t, self.block_size, little, self._stage)
+            self._raise_pass1(errs, err_codes)
+            return self._gather(out, totals)
         with self._stage("dec_pass1"):
             words, _, _, errs, err_codes, codes = decode_pass1_fixed(
-                mat_t, plens_t, self.block_size,
-                little=self.spec.endianness is Endianness.LITTLE,
-            )
-        return self._apply(words, errs, err_codes, n, codes)
+                mat_t, plens_t, self.block_size, little)
+        self._raise_pass1(errs, err_codes)
+        return self._apply(rt, words, len(payloads), codes)
 
-    def _decode_variable_device(self, header, payloads) -> bytes | None:
-        """Strict-schedule device decode; None when any block is
-        non-strict."""
-        n = header.n_blocks
+    def _decode_variable(self, payloads) -> bytes | None:
+        """Strict-schedule decode; None when any block is non-strict."""
+        rt = self._host_pass2()
         with self._stage("dec_host_prep"):
             mat, plens = self._payload_matrix(
                 payloads, max(len(p) for p in payloads)
             )
-        with self._stage("dec_count_recovery"):
-            counts, strict, sched_arr, S = prepare_variable_decode(
-                mat, plens, self.spec
-            )
+        if rt is None:
+            out, totals, errs, err_codes, strict = decode_variable_all_device(
+                mat, plens, self.spec, self.block_size, self.device,
+                self._stage)
+        else:
+            p = variable_pass1(mat, plens, self.spec, self.block_size,
+                               self.device, stage=self._stage)
+            errs, err_codes, strict = p.err, p.err_code, p.strict
         if not strict.all():
             return None
-        with self._stage("dec_h2d"):
-            mat_t = torch.from_numpy(mat).to(self.device)
-            counts_t = torch.from_numpy(counts.astype(np.int32)).to(
-                self.device)
-            sched_t = torch.from_numpy(sched_arr).to(self.device)
-        with self._stage("dec_unpack"):
-            dense, data_ok = _sched.unpack_variable_device(
-                mat_t, counts_t, self.spec, S
-            )
-        if not bool(data_ok.all()):
-            return None
-        with self._stage("dec_pass1"):
-            words, _, errs, err_codes = decode_pass1(
-                dense, counts_t, self.spec, self.block_size, sched_t
-            )
-        return self._apply(words, errs, err_codes, n, dense)
+        self._raise_pass1(errs, err_codes)
+        if rt is None:
+            return self._gather(out, totals)
+        return self._apply(rt, p.words, len(payloads), p.dense)
 
-    def _apply(self, words, errs, err_codes, n: int, codes) -> bytes:
-        """Raise on a pass-1 error, else resolve the descriptors on the host."""
+    def _decode_variable_nonstrict(self, payloads) -> bytes:
+        """Foreign early-CLEAR blocks: split at their CLEARs on the host,
+        every epoch decoded on the device."""
+        with self._stage("dec_host_prep"):
+            mat, plens = self._payload_matrix(
+                payloads, max(len(p) for p in payloads)
+            )
+        parts = decode_variable_nonstrict_device(
+            mat, plens, self.spec, self.block_size, self.device, self._stage
+        )
+        return b"".join(parts)
+
+    @staticmethod
+    def _raise_pass1(errs, err_codes) -> None:
         errs = errs.cpu().numpy()
         if errs.any():
             i = int(np.argmax(errs != 0))
             raise UnexpectedCodeError(int(err_codes[i]))
+
+    def _apply(self, rt, words, n: int, codes) -> bytes:
+        """Resolve the descriptors on the host."""
         with self._stage("dec_d2h_words"):
             words = words.cpu().numpy()
         with self._stage("dec_apply_words"):
-            outs, tlens = get_runtime().apply_words(
-                words, self.block_size, codes=codes
-            )
+            outs, tlens = rt.apply_words(words, self.block_size, codes=codes)
             return b"".join(outs[i, : tlens[i]].tobytes() for i in range(n))
+
+    def _gather(self, out: torch.Tensor, totals: torch.Tensor) -> bytes:
+        """The blocks' decoded bytes back to back, one D2H copy."""
+        with self._stage("dec_d2h_out"):
+            keep = (torch.arange(out.shape[1], device=out.device)[None, :]
+                    < totals[:, None])
+            return out[keep].cpu().numpy().tobytes()
 
     # ---- streaming container API ----------------------------------------------
 

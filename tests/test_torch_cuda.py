@@ -73,11 +73,24 @@ def test_kernels_match_plain(name, cuda):
         pay, nb = tenc.pack12(dense, counts, True)
         codes, cnt_t = tdec.unpack12(pay, nb, True)
         sched_t = None
-    got = tdec.decode_pass1(codes, cnt_t, spec, 6000, sched_t)
-    want = tdec.decode_pass1_reference(codes, cnt_t, spec, 6000, sched_t)
+    got = tdec.decode_pass1(codes, cnt_t, spec, 6000, sched_t, pair2=True)
+    want = tdec.decode_pass1_reference(codes, cnt_t, spec, 6000, sched_t,
+                                       pair2=True)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
     assert build.LAUNCHES["decode_pass1"] == before["decode_pass1"] + 1
+
+    words, totals, _, _, pair = got
+    out = tdec.decode_pass2_stride2(codes, words, pair, cnt_t, 6000,
+                                    spec, sched_t)
+    ref = tdec.decode_pass2_stride2_reference(codes, words, pair, cnt_t,
+                                              6000, spec, sched_t)
+    assert torch.equal(out, ref)
+    assert build.LAUNCHES["decode_pass2"] == before["decode_pass2"] + 1
+    out = out.cpu().numpy()
+    for i in range(len(lens)):
+        assert int(totals[i]) == lens[i]
+        assert (out[i, : lens[i]] == mat[i, : lens[i]]).all()
 
 
 def test_container_round_trip_on_card(cuda):
@@ -90,3 +103,23 @@ def test_container_round_trip_on_card(cuda):
         cpu = BlockParallelCodec(spec, device="cpu")
         assert container == cpu.encode(data)
         assert codec.decode(container) == data
+
+
+@pytest.mark.parametrize("name", ["gif7", "fixed"])
+def test_container_device_pass2_on_card(name, cuda, monkeypatch):
+    from lzw_tpu_torch.native.runtime import NativeRuntime
+
+    corpus = load_corpus(pathlib.Path(__file__).parent.parent / "test-assets")
+    spec = SPECS[name]
+    data = corpus["tokyo"]
+    container = BlockParallelCodec(spec, device=cuda).encode(data)
+
+    def host_called(*args, **kwargs):
+        raise AssertionError("the device route called the native runtime")
+
+    monkeypatch.setattr(NativeRuntime, "apply_words", host_called)
+    monkeypatch.setattr(NativeRuntime, "decode_blocks", host_called)
+    codec = BlockParallelCodec(spec, device=cuda, pass2="device")
+    before = dict(build.LAUNCHES)
+    assert codec.decode(container) == data
+    assert build.LAUNCHES["decode_pass2"] == before["decode_pass2"] + 1
