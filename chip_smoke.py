@@ -8,13 +8,14 @@ Run from the repository root, with no arguments::
 Phases, one line each, any failure exits non-zero:
 
 1. device: the CUDA card's name and ``nvidia-smi`` name and power limit;
-2. build: compiles the three CUDA kernels from ``lzw_tpu_torch/kernels/csrc``
+2. build: compiles the four CUDA kernels from ``lzw_tpu_torch/kernels/csrc``
    (nvcc, sm_90a) and the native runtime from ``lzw_tpu/native``, all at
    once;
-3. kernel vs plain: the encode-parse, pass-1 (with its stride-2 pair rows)
-   and pass-2 kernels against their plain PyTorch versions on the card,
-   exact equality, for gif7, gif2, tiff and fixed-12 on 64 blocks x 8 KiB of
-   random and compressible data;
+3. kernel vs plain: the encode-parse kernel, pass 1 with its stride-2 and
+   with its stride-1 pair rows, and both pass-2 walks (stride-2 and
+   stride-1) against their plain PyTorch versions on the card, exact
+   equality, and both walks' bytes against the blocks, for gif7, gif2, tiff
+   and fixed-12 on 64 blocks x 8 KiB of random and compressible data;
 4. the slice: ``BlockParallelCodec(LzwSpec.gif(7), device="cuda")`` on
    128 MiB (2048 x 64 KiB blocks) of the tiled image corpus and of the tiled
    text corpus: every payload equal to the native runtime's encoder, and a
@@ -30,7 +31,16 @@ Phases, one line each, any failure exits non-zero:
    2000 bytes) through ``pass2="device"`` and ``"auto"`` (which must call
    the native ``decode_blocks``): equal to the input and to the native
    runtime's ``decode_blocks``; then the decode kernels against their plain
-   versions at the sub-streams' shape.
+   versions at the sub-streams' shape;
+7. the stride-1 route at the main path's width: the all-device decode with
+   ``stride2=False`` (pass 1 with stride-1 rows, then the stride-1 walk)
+   beside the default stride-2 one, in turns, on the payloads of the
+   128 MiB gif7 image container (2048 x 64 KiB) and of the 32 MiB fixed-12
+   one: bytes equal to the input, each run counted to launch its own walk
+   and no native call, end to end MiB/s of both; then the stride-1 walk
+   against its plain version at both shapes (on the kernel's own stride-1
+   rows at 64 KiB) and the stride-1 rows against theirs at the fixed-12
+   shape, and pass 1's and the walks' kernel times side by side.
 
 It prints a ``{"kernels": [...]}`` line and ends with
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside the
@@ -52,12 +62,18 @@ MiB = 1 << 20
 # Each CUDA kernel's source and the TPU kernel it replaces (file:line of the
 # kernel function; see PERF.md for the whole table).
 KERNEL_SOURCES = {
+    # One kernel for K1, K2 and the legacy K6-K8, which differ only in the
+    # TPU's dictionary layout.
     "encode_parse": ("lzw_tpu_torch/kernels/csrc/encode_parse.cu",
-                     "lzw_tpu/kernels/encode_pallas.py:501"),
+                     "lzw_tpu/kernels/encode_pallas.py:501 (K1), :595 (K2), "
+                     ":92 (K6), :105 (K7), :679 (K8)"),
     "decode_pass1": ("lzw_tpu_torch/kernels/csrc/decode_pass1.cu",
                      "lzw_tpu/kernels/decode_pallas.py:128"),
     "decode_pass2": ("lzw_tpu_torch/kernels/csrc/decode_pass2.cu",
                      "lzw_tpu/kernels/decode_pallas.py:1289"),
+    "decode_pass2_stride1": (
+        "lzw_tpu_torch/kernels/csrc/decode_pass2_stride1.cu",
+        "lzw_tpu/kernels/decode_pallas.py:1085"),
 }
 # Calls of the native runtime's decode entry points, by name; the
 # all-device route must make none.
@@ -166,41 +182,55 @@ def pass1_inputs(spec, dense, counts, device):
     return codes, cnt_t, torch.from_numpy(sched_arr).to(device)
 
 
-def compare_decode(spec, codes, n_codes, block, sched_t, label):
-    """Pass 1 (with its stride-2 pair rows) and pass 2 against their plain
-    versions on the same CUDA inputs.
+def compare_decode(spec, codes, n_codes, block, sched_t, label,
+                   stride2: bool = True, pass1=None):
+    """Pass 1 with its stride-2 pair rows (``stride2``) or its stride-1
+    ones, unless ``pass1`` gives the kernel's own outputs with them, and the
+    walk of those rows against their plain versions on the same CUDA
+    inputs.
 
     Returns ({kernel: (max_abs_err, kernel ms, plain ms)}, pass-1 outputs,
-    pass-2 bytes)."""
+    the walk's bytes); pass 1 with stride-1 rows is named ``decode_pass1
+    stride-1``."""
     from lzw_tpu_torch.kernels import decode as tdec
 
-    dec = tdec.decode_pass1(codes, n_codes, spec, block, sched_t, pair2=True)
-    plain_ms_d, dec_ref = once_ms(lambda: tdec.decode_pass1_reference(
-        codes, n_codes, spec, block, sched_t, pair2=True))
-    err_d = max_abs_err(dec, dec_ref)
-    ms_d = cuda_ms(lambda: tdec.decode_pass1(codes, n_codes, spec, block,
-                                             sched_t, pair2=True))
-    words, _, _, _, pair = dec
-    out = tdec.decode_pass2_stride2(codes, words, pair, n_codes, block, spec,
-                                    sched_t)
-    plain_ms_2, out_ref = once_ms(lambda: tdec.decode_pass2_stride2_reference(
-        codes, words, pair, n_codes, block, spec, sched_t))
-    err_2 = max_abs_err((out,), (out_ref,))
-    ms_2 = cuda_ms(lambda: tdec.decode_pass2_stride2(
-        codes, words, pair, n_codes, block, spec, sched_t))
-    if err_d or err_2:
-        raise AssertionError(
-            f"{label}: kernel != plain (pass 1 max_abs_err {err_d}, "
-            f"pass 2 max_abs_err {err_2})")
+    if stride2:
+        rows, p1_name, name = "stride2", "decode_pass1", "decode_pass2"
+        walk, plain = (tdec.decode_pass2_stride2,
+                       tdec.decode_pass2_stride2_reference)
+    else:
+        rows, p1_name = "stride1", "decode_pass1 stride-1"
+        name = "decode_pass2_stride1"
+        walk, plain = (tdec.decode_pass2_device,
+                       tdec.decode_pass2_device_reference)
+    res = {}
+    dec = pass1
+    if dec is None:
+        args = (codes, n_codes, spec, block, sched_t)
+        dec = tdec.decode_pass1(*args, rows=rows)
+        plain_ms, ref = once_ms(
+            lambda: tdec.decode_pass1_reference(*args, rows=rows))
+        ms = cuda_ms(lambda: tdec.decode_pass1(*args, rows=rows))
+        res[p1_name] = (max_abs_err(dec, ref), ms, plain_ms)
+    args = (codes, dec[0], dec[4], n_codes, block, spec, sched_t)
+    out = walk(*args)
+    plain_ms, ref = once_ms(lambda: plain(*args))
+    res[name] = (max_abs_err((out,), (ref,)), cuda_ms(lambda: walk(*args)),
+                 plain_ms)
+    bad = {k: v[0] for k, v in res.items() if v[0]}
+    if bad:
+        raise AssertionError(f"{label}: kernel != plain, max_abs_err {bad}")
     if int(dec[2].abs().sum()):
         raise AssertionError(f"{label}: unexpected pass-1 error flags")
-    return ({"decode_pass1": (err_d, ms_d, plain_ms_d),
-             "decode_pass2": (err_2, ms_2, plain_ms_2)}, dec, out)
+    return res, dec, out
 
 
-def compare_kernels(spec, mat, lens, block, device, label):
-    """The three kernels against their plain versions on the same CUDA
-    inputs, and pass 2's bytes against the blocks.
+def compare_kernels(spec, mat, lens, block, device, label,
+                    stride1: bool = False):
+    """The encode, pass-1 (stride-2 rows) and stride-2 walk kernels against
+    their plain versions on the same CUDA inputs, and the walk's bytes
+    against the blocks; with ``stride1`` also pass 1 with stride-1 rows and
+    the stride-1 walk.
 
     Returns per-kernel (max_abs_err, kernel ms, plain ms)."""
     import torch
@@ -223,16 +253,26 @@ def compare_kernels(spec, mat, lens, block, device, label):
     codes, n_codes, sched_t = pass1_inputs(spec, dense, counts, device)
     res, dec, out = compare_decode(spec, codes, n_codes, block, sched_t,
                                    label)
+    walks = [(dec, out)]
+    if stride1:
+        res1, dec1, out1 = compare_decode(spec, codes, n_codes, block,
+                                          sched_t, label, stride2=False)
+        res.update(res1)
+        walks.append((dec1, out1))
     # The decoded bytes are the blocks themselves.
-    if not torch.equal(dec[1].cpu(), lens_t.cpu()):
-        raise AssertionError(f"{label}: pass-1 totals != block lengths")
     keep = torch.arange(block, device=device)[None, :] < lens_t[:, None]
-    if not torch.equal(torch.where(keep, out, 0), torch.where(keep, blocks_t, 0)):
-        raise AssertionError(f"{label}: pass 2 did not give the input back")
+    for dec, out in walks:
+        if not torch.equal(dec[1].cpu(), lens_t.cpu()):
+            raise AssertionError(f"{label}: pass-1 totals != block lengths")
+        if not torch.equal(torch.where(keep, out, 0),
+                           torch.where(keep, blocks_t, 0)):
+            raise AssertionError(
+                f"{label}: pass 2 did not give the input back")
     res["encode_parse"] = (err_e, ms_e, plain_ms_e)
     say("kernels", f"{label}: N={mat.shape[0]} B={block} "
         f"codes={int(counts.sum())} max code/block={int(counts.max())}; "
-        + kernel_times(res) + ", kernel == plain exactly, pass 2 == input")
+        + kernel_times(res) + ", kernel == plain exactly, "
+        + ("both walks" if stride1 else "pass 2") + " == input")
     return res
 
 
@@ -436,6 +476,110 @@ def run_nonstrict(spec, data: bytes, block: int, label: str, device="cuda"):
     return launches
 
 
+def run_stride1(spec, data: bytes, block: int, label: str, device="cuda"):
+    """The all-device decode of a container's payloads with ``stride2=False``
+    beside the default ``stride2=True``, in turns (2, 1, 1, 2), each run
+    counted to launch its own walk and no native call and its bytes checked
+    against the input; then the stride-1 walk against its plain version at
+    this shape, on the kernel's own stride-1 rows for a variable spec, and
+    for fixed-12 also the stride-1 rows against theirs; last the kernel
+    times of pass 1 by row kind and of both walks.
+
+    Returns (the four runs' launch counts, {kernel: (max_abs_err, kernel
+    ms, plain ms)})."""
+    import numpy as np
+    import torch
+
+    from lzw_tpu_torch import BlockParallelCodec
+    from lzw_tpu_torch.kernels import decode as tdec
+    from lzw_tpu_torch.parallel import framing
+    from lzw_tpu_torch.spec import Endianness
+
+    container = BlockParallelCodec(spec, block_size=block,
+                                   device=device).encode(data)
+    _, payloads = framing.parse_frame(container)
+    width = max(map(len, payloads))
+    if not spec.variable:
+        width = -(-width // 3) * 3
+    mat = np.zeros((len(payloads), width), np.uint8)
+    plens = np.array([len(p) for p in payloads], np.int32)
+    for i, p in enumerate(payloads):
+        mat[i, : len(p)] = np.frombuffer(p, np.uint8)
+    want = torch.from_numpy(
+        np.frombuffer(data, np.uint8).reshape(-1, block).copy()).to(device)
+    little = spec.endianness is Endianness.LITTLE
+    mat_t = torch.from_numpy(mat).to(device)
+    plens_t = torch.from_numpy(plens).to(device)
+
+    def decode(stride2: bool):
+        if spec.variable:
+            return tdec.decode_variable_all_device(
+                mat, plens, spec, block, device, stride2=stride2)
+        return tdec.decode_fixed_all_device(mat_t, plens_t, block, little,
+                                            stride2=stride2)
+
+    secs = {True: [], False: []}
+    launches = []
+    for stride2 in (True, False, False, True):
+        walk = "decode_pass2" if stride2 else "decode_pass2_stride1"
+        other = "decode_pass2_stride1" if stride2 else "decode_pass2"
+        dt, out, lc = timed_run(
+            lambda s2=stride2: decode(s2),
+            {"decode_pass1": 1, walk: 1, other: 0, "apply_words": 0,
+             "decode_blocks": 0}, f"{label} stride2={stride2}")
+        if int(out[2].abs().sum()) or (spec.variable and not out[4].all()):
+            raise AssertionError(f"{label} stride2={stride2}: pass-1 error "
+                                 "flags or non-strict blocks")
+        if not torch.equal(out[0], want):
+            raise AssertionError(
+                f"{label} stride2={stride2}: bytes differ from the input")
+        secs[stride2].append(dt)
+        launches.append(lc)
+    mib = len(data) / MiB
+    say("stride1", f"{label}: {mib:.0f} MiB in {len(payloads)} blocks of "
+        f"{block} B; bytes == input on both routes; stride-1 launches "
+        f"{launches[1]} (no native call)")
+    say("stride1", f"{label}: end to end all-device decode of the payload "
+        "matrix (" + ("host count recovery, H2D, unpack, " if spec.variable
+                      else "unpack, ")
+        + "passes; output left on the device), MiB/s in run order: stride-2 "
+        + ", ".join(f"{mib / t:.1f} ({t * 1e3:.1f} ms)" for t in secs[True])
+        + "; stride-1 "
+        + ", ".join(f"{mib / t:.1f} ({t * 1e3:.1f} ms)"
+                    for t in secs[False]))
+
+    # The kernels at this shape (not counted as launches).
+    if spec.variable:
+        p1 = tdec.variable_pass1(mat, plens, spec, block, device,
+                                 rows="stride1")
+        codes, n_codes, sched_t = p1.dense, p1.counts_t, p1.sched
+        res, dec, _ = compare_decode(
+            spec, codes, n_codes, block, sched_t, label, stride2=False,
+            pass1=(p1.words, p1.totals, p1.err, p1.err_code, p1.pair))
+    else:
+        codes, n_codes = tdec.unpack12(mat_t, plens_t, little)
+        codes, sched_t = codes.contiguous(), None
+        res, dec, _ = compare_decode(spec, codes, n_codes, block, sched_t,
+                                     label, stride2=False)
+    times = {rows: cuda_ms(lambda r=rows: tdec.decode_pass1(
+        codes, n_codes, spec, block, sched_t, rows=r))
+        for rows in tdec.ROW_KINDS}
+    pair2 = tdec.decode_pass1(codes, n_codes, spec, block, sched_t,
+                              rows="stride2")[4]
+    words, pair1 = dec[0], dec[4]
+    times["walk stride-2"] = cuda_ms(lambda: tdec.decode_pass2_stride2(
+        codes, words, pair2, n_codes, block, spec, sched_t))
+    times["walk stride-1"] = cuda_ms(lambda: tdec.decode_pass2_device(
+        codes, words, pair1, n_codes, block, spec, sched_t))
+    times["prefix-sum glue"] = cuda_ms(
+        lambda: tdec._word_ends(words, n_codes))
+    say("kernels", f"{label}: N={codes.shape[0]} S={codes.shape[1]}; "
+        + kernel_times(res) + ", kernel == plain exactly; kernel ms by "
+        "CUDA events: pass 1 rows "
+        + ", ".join(f"{k} {v:.3f}" for k, v in times.items()))
+    return launches, res
+
+
 def main() -> int:
     if not (ROOT / "lzw_tpu_torch").is_dir():
         print("chip_smoke.py: lzw_tpu_torch/ not found beside the script; "
@@ -456,6 +600,7 @@ def main() -> int:
     from lzw_tpu_torch.utils.corpus import load_tokyo_pixels
 
     # 1. Device.
+    t_start = time.perf_counter()
     kind = torch.cuda.get_device_name(0)
     smi = nvidia_smi_line()
     say("device", f"{kind}; torch {torch.__version__} cuda "
@@ -485,7 +630,7 @@ def main() -> int:
              "tiff": LzwSpec.tiff(), "fixed": LzwSpec.fixed(Endianness.LITTLE)}
     for i, (label, spec) in enumerate(specs.items()):
         mat, lens = sample_blocks(spec, 64, 8192, seed=i)
-        compare_kernels(spec, mat, lens, 8192, device, label)
+        compare_kernels(spec, mat, lens, 8192, device, label, stride1=True)
 
     # 4. The slice at full size.
     assets = ROOT / "test-assets"
@@ -524,6 +669,14 @@ def main() -> int:
     add([run_nonstrict(gif7, tile(tokyo, 8 * MiB), 1 << 16,
                        "gif7 non-strict image")])
 
+    # 7. The stride-1 route beside the stride-2 one at full width.
+    launches, stride1 = run_stride1(gif7, tile(tokyo, 128 * MiB), 1 << 16,
+                                    "gif7 image")
+    add(launches)
+    full["decode_pass2_stride1"] = stride1["decode_pass2_stride1"]
+    add(run_stride1(fixed, tile(tokyo, 32 * MiB), 1 << 12,
+                    "fixed-12 image")[0])
+
     kernels = []
     for name, (src, rep) in KERNEL_SOURCES.items():
         err, ms, plain_ms = full[name]
@@ -531,6 +684,7 @@ def main() -> int:
                         "replaces": rep, "launches": total[name],
                         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms})
     print(json.dumps({"kernels": kernels}))
+    say("done", f"wall time {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count(),

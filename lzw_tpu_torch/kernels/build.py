@@ -1,7 +1,8 @@
 """Build, load and count the port's hand-written CUDA kernels.
 
 Each ``csrc/<name>.cu`` holds one kernel behind a plain C launch function
-(no PyTorch headers, so ``nvcc`` takes seconds).  On first CUDA use it is
+(no PyTorch headers, so ``nvcc`` takes seconds); ``csrc/*.cuh`` hold device
+helpers that several kernels include.  On first CUDA use a kernel is
 compiled for Hopper::
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
@@ -32,7 +33,8 @@ __all__ = ["KERNELS", "LAUNCHES", "BuildError", "find_nvcc", "load",
 _HERE = pathlib.Path(__file__).resolve().parent
 CSRC = _HERE / "csrc"
 BUILD_DIR = _HERE / "build"
-KERNELS = ("encode_parse", "decode_pass1", "decode_pass2")
+KERNELS = ("encode_parse", "decode_pass1", "decode_pass2",
+           "decode_pass2_stride1")
 DEFAULT_NVCC = "/usr/local/cuda/bin/nvcc"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
@@ -69,7 +71,8 @@ def find_nvcc() -> str:
 def _compile(name: str) -> pathlib.Path:
     src = CSRC / f"{name}.cu"
     lib = BUILD_DIR / f"lib{name}.so"
-    if lib.exists() and lib.stat().st_mtime >= src.stat().st_mtime:
+    newest = max(f.stat().st_mtime for f in (src, *CSRC.glob("*.cuh")))
+    if lib.exists() and lib.stat().st_mtime >= newest:
         return lib
     nvcc = find_nvcc()
     BUILD_DIR.mkdir(exist_ok=True)

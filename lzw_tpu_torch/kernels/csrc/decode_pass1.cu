@@ -2,9 +2,9 @@
 //
 // Replaces the TPU kernel lzw_tpu/kernels/decode_pallas.py:_decode_kernel
 // (via _make_kernel; callers decode_pass1_fixed_tpu and _variable_pass1):
-// its words and stats outputs and, on request, its stride-2 pair rows
-// (`pair2=True`).  The stride-1 pair rows feed only the stride-1 pass 2,
-// which is not ported, and are not produced here.
+// its words and stats outputs and, on request, one kind of pair rows: the
+// stride-1 rows that the stride-1 pass 2 walks (`pair2=False`) or the
+// stride-2 rows of the stride-2 pass 2 (`pair2=True`).
 //
 // Each decoded word is a literal or a forward copy of an already-decoded
 // span of the same block, so pass 1 only tracks, per dictionary code, the
@@ -27,6 +27,12 @@
 // block in global memory), and the ring, windows and row mapping are gone.
 // Stale entries of an earlier epoch are never read: within an epoch every
 // code below `next` was inserted in that epoch.
+//
+// Stride-1 pair rows (decode_pallas.py:336-341): row t holds
+//   nxt<<20 | prev_code<<8 | first
+// for the entry created at step t (code nxt, prefix prev_code, suffix
+// `first`), else 0.  nxt<<20 sets bit 31 from code 2048 on: the row is
+// built in uint32 and stored as its bit pattern, as the TPU's i32 row.
 //
 // Stride-2 pair rows (decode_pallas.py:323-352): row t holds the
 // descriptor of the entry created at step t (code `next`, prefix
@@ -53,20 +59,27 @@
 namespace {
 
 constexpr int kTableSize = 4096;
+// Which pair rows to write (decode.py: ROW_KINDS).  A template argument, so
+// each kind compiles to its own loop: no branch on the kind per code, and
+// without stride-2 rows the `pps` carry is dead code.
+constexpr int kRowsNone = 0;
+constexpr int kRowsStride1 = 1;
+constexpr int kRowsStride2 = 2;
 
+template <int kRows>
 __global__ void decode_pass1_kernel(
     const int32_t* __restrict__ codes, const int32_t* __restrict__ n_codes,
     int n_blocks, int S, int block_size, int alphabet, int first_free,
     const int32_t* __restrict__ sched, uint32_t* __restrict__ plane_a,
     uint32_t* __restrict__ plane_b, int32_t* __restrict__ words,
-    int32_t* __restrict__ pair2, int32_t* __restrict__ totals,
+    int32_t* __restrict__ rows, int32_t* __restrict__ totals,
     int32_t* __restrict__ err, int32_t* __restrict__ err_code) {
   const int n = blockIdx.x * blockDim.x + threadIdx.x;
   if (n >= n_blocks) return;
   const int64_t row = static_cast<int64_t>(n) * S;
   const int32_t* c_row = codes + row;
   int32_t* w_row = words + row;
-  int32_t* p_row = pair2 == nullptr ? nullptr : pair2 + row;
+  int32_t* p_row = kRows == kRowsNone ? nullptr : rows + row;
   uint32_t* ta = plane_a + static_cast<int64_t>(n) * kTableSize;
   uint32_t* tb = plane_b + static_cast<int64_t>(n) * kTableSize;
   const int nc = n_codes[n];
@@ -127,7 +140,13 @@ __global__ void decode_pass1_kernel(
       tb[nxt] = (static_cast<uint32_t>(prev_code & 0xFFF) << 17) |
                 static_cast<uint32_t>(off - prev_len);
     }
-    if (p_row != nullptr) {
+    if (kRows == kRowsStride1) {
+      p_row[t] = static_cast<int32_t>(
+          ins ? (static_cast<uint32_t>(nxt) << 20) |
+                    (static_cast<uint32_t>(prev_code) << 8) |
+                    static_cast<uint32_t>(first)
+              : 0u);
+    } else if (kRows == kRowsStride2) {
       int32_t p2 = 0;
       if (ins) {
         p2 = pps < 0 ? (1 << 28) | ((prev_code & 0xFF) << 8) | (first & 0xFF)
@@ -161,18 +180,21 @@ __global__ void decode_pass1_kernel(
 // Launch on `stream`; returns cudaGetLastError() (0 on success).  `sched`
 // is null for the fixed flavor, else the [2, S] schedule rows
 // (next index - 1, epoch start ordinal) of a strict variable stream.
-// `pair2` is null unless the stride-2 pair rows [N, S] are wanted.
+// `rows` is null unless pair rows [N, S] are wanted, of `row_kind` 1
+// (stride-1) or 2 (stride-2).
 extern "C" int decode_pass1_launch(
     const int32_t* codes, const int32_t* n_codes, int n_blocks, int S,
     int block_size, int alphabet, int first_free, const int32_t* sched,
-    uint32_t* plane_a, uint32_t* plane_b, int32_t* words, int32_t* pair2,
-    int32_t* totals, int32_t* err, int32_t* err_code, int threads_per_cta,
-    void* stream) {
+    uint32_t* plane_a, uint32_t* plane_b, int32_t* words, int32_t* rows,
+    int row_kind, int32_t* totals, int32_t* err, int32_t* err_code,
+    int threads_per_cta, void* stream) {
   if (n_blocks <= 0) return 0;
   const int grid = (n_blocks + threads_per_cta - 1) / threads_per_cta;
-  decode_pass1_kernel<<<grid, threads_per_cta, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
+  auto* kernel = &decode_pass1_kernel<kRowsNone>;
+  if (row_kind == kRowsStride1) kernel = &decode_pass1_kernel<kRowsStride1>;
+  if (row_kind == kRowsStride2) kernel = &decode_pass1_kernel<kRowsStride2>;
+  kernel<<<grid, threads_per_cta, 0, static_cast<cudaStream_t>(stream)>>>(
       codes, n_codes, n_blocks, S, block_size, alphabet, first_free, sched,
-      plane_a, plane_b, words, pair2, totals, err, err_code);
+      plane_a, plane_b, words, rows, totals, err, err_code);
   return static_cast<int>(cudaGetLastError());
 }

@@ -36,6 +36,8 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "pass2_slot.cuh"
+
 namespace {
 
 __global__ void decode_pass2_kernel(
@@ -43,38 +45,26 @@ __global__ void decode_pass2_kernel(
     const int32_t* __restrict__ pair2, const int32_t* __restrict__ n_codes,
     const int32_t* __restrict__ sched, int n_blocks, int S, int block_size,
     int alphabet, int first_free, uint8_t* __restrict__ out) {
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x +
-                    threadIdx.x;
-  if (i >= static_cast<int64_t>(n_blocks) * S) return;
-  const int n = static_cast<int>(i / S);
-  const int t = static_cast<int>(i - static_cast<int64_t>(n) * S);
-  if (t >= n_codes[n]) return;
-  const int64_t row = static_cast<int64_t>(n) * S;
-  const int end = min(ends[row + t], block_size);
-  const int start = t == 0 ? 0 : min(ends[row + t - 1], block_size);
-  if (end <= start) return;  // a hole
-  uint8_t* o = out + static_cast<int64_t>(n) * block_size;
-  const int code = codes[row + t];
-  const int est = sched != nullptr ? sched[S + t] : 0;
-  if (t == est || code < alphabet) {  // an epoch's first code, or a root
-    o[start] = static_cast<uint8_t>(code < alphabet ? code : 0);
+  pass2::Slot s;
+  if (!pass2::setup(static_cast<int64_t>(blockIdx.x) * blockDim.x +
+                        threadIdx.x,
+                    codes, ends, pair2, n_codes, sched, n_blocks, S,
+                    block_size, alphabet, first_free, out, &s)) {
     return;
   }
-  const int32_t* p_row = pair2 + row;
-  const int base = est + 1 - first_free;
-  int node = code;
-  int pos = end - 1;
-  while (pos >= start) {
+  int node = s.code;
+  int pos = s.end - 1;
+  while (pos >= s.start) {
     if (node < alphabet) {
-      o[pos] = static_cast<uint8_t>(node);
+      s.out[pos] = static_cast<uint8_t>(node);
       break;
     }
-    const int r = base + node;
+    const int r = s.base + node;
     if (r < 0 || r >= S) break;
-    const uint32_t d = static_cast<uint32_t>(p_row[r]);
-    o[pos] = static_cast<uint8_t>(d & 0xFFu);
-    if (--pos < start) break;
-    o[pos] = static_cast<uint8_t>((d >> 8) & 0xFFu);
+    const uint32_t d = static_cast<uint32_t>(s.rows[r]);
+    s.out[pos] = static_cast<uint8_t>(d & 0xFFu);
+    if (--pos < s.start) break;
+    s.out[pos] = static_cast<uint8_t>((d >> 8) & 0xFFu);
     --pos;
     if (d >> 28) break;
     node = static_cast<int>((d >> 16) & 0xFFFu);

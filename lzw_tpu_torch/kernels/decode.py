@@ -2,20 +2,23 @@
 
 Port of ``lzw_tpu/kernels/decode_pallas.py``.  Pass 1: codes -> copy/literal
 descriptors ``kind<<29 | len<<17 | payload`` plus per-block total, err and
-err_code, and on request the stride-2 pair rows.  Pass 2 resolves them into
-bytes: either the native runtime's ``apply_words`` on the host, or the
-all-device stride-2 chain walk :func:`decode_pass2_stride2`.
+err_code, and on request one kind of pair rows (stride-1 or stride-2).
+Pass 2 resolves them into bytes: either the native runtime's
+``apply_words`` on the host, or an all-device chain walk, the stride-2
+:func:`decode_pass2_stride2` or the stride-1 :func:`decode_pass2_device`.
 
 TPU mechanics with no counterpart here: the lockstep group/cell/segment
 tiles and the VMEM group budgets (decode_pallas.py:569-570,609-624), the
 one-/two-plane and ring table layouts with their windowed scans (the kernel
 indexes its tables by code), and the padding of the code axis to whole
 cells.  ``MAX_BLOCK`` stays: the 17-bit descriptor payload that
-``apply_words`` reads bounds the block size, not the TPU.  Pass 2 drops the
-TPU's backwards lockstep walk with its epoch units, pooling and sorting,
-reversed output, per-lane shift and flip (decode_pallas.py:884-1056,
-1260, 1461-1566): each word's output offset is the prefix sum of pass 1's
-descriptor lengths, so every code slot resolves its own word in place.
+``apply_words`` reads bounds the block size, not the TPU.  Both pass-2
+walks drop the TPU's backwards lockstep walk with its epoch units, pooling
+and sorting, round segments, epoch-carrying code bits, reversed output,
+per-lane shift and flip (decode_pallas.py:884-1056, 1169-1171, 1260,
+1461-1566, 1619-1693): each word's output offset is the prefix sum of
+pass 1's descriptor lengths, so every code slot resolves its own word in
+place.
 """
 
 from __future__ import annotations
@@ -36,8 +39,9 @@ __all__ = [
     "decode_pass1_variable", "prepare_variable_decode", "unpack12",
     "variable_pass1", "VariablePass1",
     "decode_pass2_stride2", "decode_pass2_stride2_reference",
+    "decode_pass2_device", "decode_pass2_device_reference",
     "decode_variable_all_device", "decode_fixed_all_device",
-    "KIND_COPY", "KIND_LIT", "KIND_HOLE", "MAX_BLOCK",
+    "KIND_COPY", "KIND_LIT", "KIND_HOLE", "MAX_BLOCK", "ROW_KINDS",
 ]
 
 KIND_COPY = 0
@@ -45,6 +49,8 @@ KIND_LIT = 1
 KIND_HOLE = 2
 
 MAX_BLOCK = 1 << 17  # descriptor payload bound (17 bits)
+# The pair rows pass 1 may write, by the index the kernel takes.
+ROW_KINDS = ("none", "stride1", "stride2")
 THREADS_PER_CTA = 8  # lanes per warp, as the encoder
 PASS2_THREADS_PER_CTA = 256  # one thread per code slot
 
@@ -78,6 +84,12 @@ def _table_params(spec: LzwSpec | None) -> tuple[int, int]:
     return spec.alphabet_size, spec.first_free_code
 
 
+def _row_kind(rows: str) -> int:
+    if rows not in ROW_KINDS:
+        raise ValueError(f"rows must be one of {ROW_KINDS}, got {rows!r}")
+    return ROW_KINDS.index(rows)
+
+
 def _check_inputs(codes, n_codes, sched, block_size):
     dev = codes.device
     build.require_tensor(codes, "codes", torch.int32, 2, dev)
@@ -97,7 +109,7 @@ def _check_inputs(codes, n_codes, sched, block_size):
 
 def decode_pass1(codes: torch.Tensor, n_codes: torch.Tensor,
                  spec: LzwSpec | None, block_size: int,
-                 sched: torch.Tensor | None = None, pair2: bool = False):
+                 sched: torch.Tensor | None = None, rows: str = "none"):
     """Pass 1 over dense codes.
 
     Args:
@@ -107,14 +119,18 @@ def decode_pass1(codes: torch.Tensor, n_codes: torch.Tensor,
       block_size: decoded block bound (<= MAX_BLOCK).
       sched:   i32[2, S] schedule rows (next index - 1, epoch start) for a
                variable spec (:func:`prepare_variable_decode`), else None.
-      pair2:   also return the stride-2 pair rows i32[N, S] that
-               :func:`decode_pass2_stride2` walks: row t describes the entry
-               created at step t (``done<<28 | prefix(p)<<16 | suffix(p)<<8
-               | suffix(c)``), 0 where none was.
+      rows:    which pair rows i32[N, S] to return besides (one of
+               :data:`ROW_KINDS`).  Row t describes the entry created at
+               step t (code c, prefix p), 0 where none was: ``"stride1"``
+               gives ``c<<20 | p<<8 | suffix(c)`` (bit 31 set from code 2048
+               on), which :func:`decode_pass2_device` walks; ``"stride2"``
+               gives ``done<<28 | prefix(p)<<16 | suffix(p)<<8 | suffix(c)``,
+               which :func:`decode_pass2_stride2` walks.
     Returns:
       (words i32[N, S], totals i32[N], err i32[N], err_code i32[N]), plus
-      the pair rows last when ``pair2``; err 1 is a code beyond the next
-      index, err 2 an output overflow.
+      the pair rows last unless ``rows`` is ``"none"``; err 1 is a code
+      beyond the next index, err 2 an output overflow.  The first four do
+      not depend on ``rows``.
 
     CPU tensors run :func:`decode_pass1_reference`; CUDA tensors run the
     kernel, and anything else raises.
@@ -122,10 +138,11 @@ def decode_pass1(codes: torch.Tensor, n_codes: torch.Tensor,
     variable = spec is not None and spec.variable
     if variable != (sched is not None):
         raise ValueError("sched is required for, and only for, variable specs")
+    row_kind = _row_kind(rows)
     _check_inputs(codes, n_codes, sched, block_size)
     if codes.device.type == "cpu":
         return decode_pass1_reference(codes, n_codes, spec, block_size, sched,
-                                      pair2)
+                                      rows)
     if codes.device.type != "cuda":
         raise ValueError(f"unsupported device {codes.device}")
     alphabet, first_free = _table_params(spec)
@@ -134,43 +151,45 @@ def decode_pass1(codes: torch.Tensor, n_codes: torch.Tensor,
     fn = build.load("decode_pass1").decode_pass1_launch
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 5
-                   + [ctypes.c_void_p] * 8 + [ctypes.c_int, ctypes.c_void_p])
+                   + [ctypes.c_void_p] * 5 + [ctypes.c_int]
+                   + [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p])
     with torch.cuda.device(dev):
         planes = torch.empty((2, N, MAX_TABLE_SIZE), dtype=torch.int32,
                              device=dev)
         words = torch.empty((N, S), dtype=torch.int32, device=dev)
         pair = (torch.empty((N, S), dtype=torch.int32, device=dev)
-                if pair2 else None)
+                if row_kind else None)
         stats = torch.empty((3, N), dtype=torch.int32, device=dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(codes.data_ptr(), n_codes.data_ptr(), N, S, block_size,
                 alphabet, first_free,
                 None if sched is None else sched.data_ptr(),
                 planes[0].data_ptr(), planes[1].data_ptr(), words.data_ptr(),
-                None if pair is None else pair.data_ptr(),
+                None if pair is None else pair.data_ptr(), row_kind,
                 stats[0].data_ptr(), stats[1].data_ptr(), stats[2].data_ptr(),
                 THREADS_PER_CTA, stream)
     build.check_launch("decode_pass1", rc)
     out = (words, stats[0], stats[1], stats[2])
-    return out + (pair,) if pair2 else out
+    return out + (pair,) if row_kind else out
 
 
 def decode_pass1_reference(codes: torch.Tensor, n_codes: torch.Tensor,
                            spec: LzwSpec | None, block_size: int,
                            sched: torch.Tensor | None = None,
-                           pair2: bool = False):
+                           rows: str = "none"):
     """Plain PyTorch version of :func:`decode_pass1`.
 
     A lockstep loop over code ordinals, vectorised over blocks, mirroring
     ``_decode_kernel``'s step (decode_pallas.py:176-361) with int64 tables
     indexed by code.
     """
+    _row_kind(rows)
     alphabet, first_free = _table_params(spec)
     N, S = codes.shape
     dev = codes.device
     codes = codes.to(torch.int64)
     nc = n_codes.to(torch.int64)
-    rows = torch.arange(N, device=dev)
+    blk = torch.arange(N, device=dev)
     # Column MAX_TABLE_SIZE takes the writes of blocks that insert nothing.
     tab_len = torch.zeros((N, MAX_TABLE_SIZE + 1), dtype=torch.int64,
                           device=dev)
@@ -206,11 +225,11 @@ def decode_pass1_reference(codes: torch.Tensor, n_codes: torch.Tensor,
         is_lit = root | first_step
         lookup = ok & ~is_lit & ~kwkwk
         c = code & (MAX_TABLE_SIZE - 1)
-        len_c = torch.where(lookup, tab_len[rows, c], 0)
-        first_c = torch.where(lookup, tab_first[rows, c], 0)
-        src_d = torch.where(lookup, tab_src[rows, c], 0)
-        pfx_c = torch.where(lookup, tab_pfx[rows, c], 0)
-        sfx_c = torch.where(lookup, tab_sfx[rows, c], 0)
+        len_c = torch.where(lookup, tab_len[blk, c], 0)
+        first_c = torch.where(lookup, tab_first[blk, c], 0)
+        src_d = torch.where(lookup, tab_src[blk, c], 0)
+        pfx_c = torch.where(lookup, tab_pfx[blk, c], 0)
+        sfx_c = torch.where(lookup, tab_sfx[blk, c], 0)
 
         length = torch.where(is_lit, 1, torch.where(kwkwk, prev_len + 1,
                                                     len_c))
@@ -236,15 +255,19 @@ def decode_pass1_reference(codes: torch.Tensor, n_codes: torch.Tensor,
         if first_step:
             ins = torch.zeros_like(ins)
         at = torch.where(ins, nxt, MAX_TABLE_SIZE)
-        tab_len[rows, at] = (prev_len + 1) & 0xFFF
-        tab_first[rows, at] = prev_first & 0xFF
-        tab_src[rows, at] = off - prev_len
-        tab_pfx[rows, at] = prev_code & 0xFFF
-        tab_sfx[rows, at] = first & 0xFF
-        p2 = torch.where(
-            pps < 0, (1 << 28) | ((prev_code & 0xFF) << 8) | (first & 0xFF),
-            ((pps >> 8) << 16) | ((pps & 0xFF) << 8) | (first & 0xFF))
-        pair[:, t] = torch.where(ins, p2, 0)
+        tab_len[blk, at] = (prev_len + 1) & 0xFFF
+        tab_first[blk, at] = prev_first & 0xFF
+        tab_src[blk, at] = off - prev_len
+        tab_pfx[blk, at] = prev_code & 0xFFF
+        tab_sfx[blk, at] = first & 0xFF
+        if rows == "stride1":
+            row = (nxt << 20) | (prev_code << 8) | first
+        else:
+            row = torch.where(
+                pps < 0,
+                (1 << 28) | ((prev_code & 0xFF) << 8) | (first & 0xFF),
+                ((pps >> 8) << 16) | ((pps & 0xFF) << 8) | (first & 0xFF))
+        pair[:, t] = torch.where(ins, row, 0)
         if sched_h is None:
             nxt = nxt + ins.to(torch.int64)
 
@@ -258,27 +281,32 @@ def decode_pass1_reference(codes: torch.Tensor, n_codes: torch.Tensor,
         prev_first = torch.where(ok, first, prev_first)
         prev_code = torch.where(ok, code, prev_code)
 
-    # Reinterpret the low 32 bits as i32, as the TPU kernel's i32 words.
-    words = torch.where(words >= 1 << 31, words - (1 << 32), words)
-    out = (words.to(torch.int32), off.to(torch.int32), err.to(torch.int32),
+    out = (_low32(words), off.to(torch.int32), err.to(torch.int32),
            err_code.to(torch.int32))
-    return out + (pair.to(torch.int32),) if pair2 else out
+    return out if rows == "none" else out + (_low32(pair),)
+
+
+def _low32(a: torch.Tensor) -> torch.Tensor:
+    """The low 32 bits of int64 values as i32, as the TPU kernel's i32
+    words and rows hold them."""
+    a = a & 0xFFFFFFFF
+    return torch.where(a >= 1 << 31, a - (1 << 32), a).to(torch.int32)
 
 
 def decode_pass1_fixed(payloads: torch.Tensor, plens: torch.Tensor,
                        block_size: int, little: bool = True,
-                       pair2: bool = False):
+                       rows: str = "none"):
     """Fixed-12 pass 1 from payload bytes (``decode_pass1_fixed_tpu``).
 
     payloads u8[N, PB] zero-padded with PB % 3 == 0, plens i32[N].  Returns
-    (words i32[N, S], n_codes, totals, err, err_code, codes), plus the
-    stride-2 pair rows last when ``pair2``; ``codes`` maps a corrupt
-    descriptor back to its wire code.
+    (words i32[N, S], n_codes, totals, err, err_code, codes), plus the pair
+    rows of kind ``rows`` last (:func:`decode_pass1`); ``codes`` maps a
+    corrupt descriptor back to its wire code.
     """
     codes, n_codes = unpack12(payloads, plens, little)
     codes, n_codes = codes.contiguous(), n_codes.contiguous()
     words, totals, err, err_code, *pair = decode_pass1(
-        codes, n_codes, None, block_size, pair2=pair2
+        codes, n_codes, None, block_size, rows=rows
     )
     return (words, n_codes, totals, err, err_code, codes, *pair)
 
@@ -319,15 +347,15 @@ class VariablePass1(NamedTuple):
     totals: torch.Tensor
     err: torch.Tensor
     err_code: torch.Tensor
-    pair: torch.Tensor | None  # stride-2 pair rows when asked for
+    pair: torch.Tensor | None  # the pair rows asked for, if any
 
 
 def variable_pass1(payloads_np: np.ndarray, plens_np, spec: LzwSpec,
-                   block_size: int, device="cpu", pair2: bool = False,
+                   block_size: int, device="cpu", rows: str = "none",
                    stage=None) -> VariablePass1:
     """Strict variable-flavor pass 1 from payload bytes
     (``_variable_pass1_from_payloads``): host count recovery, H2D, device
-    unpack, :func:`decode_pass1`.
+    unpack, :func:`decode_pass1` with pair rows of kind ``rows``.
 
     ``stage(name)``, when given, is a context manager timing each step
     (``dec_count_recovery``, ``dec_h2d``, ``dec_unpack``, ``dec_pass1``).
@@ -347,11 +375,11 @@ def variable_pass1(payloads_np: np.ndarray, plens_np, spec: LzwSpec,
                                                        spec, S)
     with stage("dec_pass1"):
         words, totals, err, err_code, *pair = decode_pass1(
-            dense, counts_t, spec, block_size, sched_t, pair2=pair2
+            dense, counts_t, spec, block_size, sched_t, rows=rows
         )
     strict = strict & data_ok.cpu().numpy()
     return VariablePass1(dense, counts, counts_t, sched_t, strict, words,
-                         totals, err, err_code, pair[0] if pair2 else None)
+                         totals, err, err_code, pair[0] if pair else None)
 
 
 def decode_pass1_variable(payloads_np: np.ndarray, plens_np, spec: LzwSpec,
@@ -376,25 +404,55 @@ def _word_ends(words: torch.Tensor, n_codes: torch.Tensor) -> torch.Tensor:
     return torch.cumsum(lens, dim=1, dtype=torch.int32)
 
 
-def _check_pass2_inputs(codes, words, pair2, n_codes, sched, block_size):
+def _pass2(kernel: str, reference, codes, words, pair, n_codes, block_size,
+           spec, sched) -> torch.Tensor:
+    """Shared wrapper of the two pass-2 kernels, whose launch functions
+    take the same arguments: checks, then the plain version for CPU
+    tensors or the kernel ``kernel`` for CUDA tensors."""
+    variable = spec is not None and spec.variable
+    if variable != (sched is not None):
+        raise ValueError("sched is required for, and only for, variable specs")
     _check_inputs(codes, n_codes, sched, block_size)
-    for name, t in (("words", words), ("pair2", pair2)):
+    for name, t in (("words", words), ("pair", pair)):
         build.require_tensor(t, name, torch.int32, 2, codes.device)
         if t.shape != codes.shape:
             raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
                              f"{tuple(codes.shape)}")
+    if codes.device.type == "cpu":
+        return reference(codes, words, pair, n_codes, block_size, spec, sched)
+    if codes.device.type != "cuda":
+        raise ValueError(f"unsupported device {codes.device}")
+    alphabet, first_free = _table_params(spec)
+    N, S = codes.shape
+    dev = codes.device
+    fn = getattr(build.load(kernel), f"{kernel}_launch")
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+                   + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p])
+    with torch.cuda.device(dev):
+        ends = _word_ends(words, n_codes)
+        out = torch.zeros((N, block_size), dtype=torch.uint8, device=dev)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = fn(codes.data_ptr(), ends.data_ptr(), pair.data_ptr(),
+                n_codes.data_ptr(),
+                None if sched is None else sched.data_ptr(),
+                N, S, block_size, alphabet, first_free, out.data_ptr(),
+                PASS2_THREADS_PER_CTA, stream)
+    build.check_launch(kernel, rc)
+    return out
 
 
 def decode_pass2_stride2(codes: torch.Tensor, words: torch.Tensor,
                          pair2: torch.Tensor, n_codes: torch.Tensor,
                          block_size: int, spec: LzwSpec | None = None,
                          sched: torch.Tensor | None = None) -> torch.Tensor:
-    """All-device pass 2: pass-1 outputs -> decoded bytes.
+    """All-device pass 2, two bytes per pair row: pass-1 outputs ->
+    decoded bytes.
 
     Args:
       codes:   i32[N, S] dense wire codes (pass 1's input).
       words:   i32[N, S] pass-1 descriptors; their lengths place each word.
-      pair2:   i32[N, S] pass-1 stride-2 pair rows (``pair2=True``).
+      pair2:   i32[N, S] pass-1 stride-2 pair rows (``rows="stride2"``).
       n_codes: i32[N] codes per block.
       block_size: output width; every block's total must fit.
       spec, sched: as for :func:`decode_pass1` (code c of step t lives at
@@ -407,33 +465,61 @@ def decode_pass2_stride2(codes: torch.Tensor, words: torch.Tensor,
     CPU tensors run :func:`decode_pass2_stride2_reference`; CUDA tensors
     run the kernel, and anything else raises.
     """
-    variable = spec is not None and spec.variable
-    if variable != (sched is not None):
-        raise ValueError("sched is required for, and only for, variable specs")
-    _check_pass2_inputs(codes, words, pair2, n_codes, sched, block_size)
-    if codes.device.type == "cpu":
-        return decode_pass2_stride2_reference(codes, words, pair2, n_codes,
-                                              block_size, spec, sched)
-    if codes.device.type != "cuda":
-        raise ValueError(f"unsupported device {codes.device}")
+    return _pass2("decode_pass2", decode_pass2_stride2_reference, codes,
+                  words, pair2, n_codes, block_size, spec, sched)
+
+
+def decode_pass2_device(codes: torch.Tensor, words: torch.Tensor,
+                        pair: torch.Tensor, n_codes: torch.Tensor,
+                        block_size: int, spec: LzwSpec | None = None,
+                        sched: torch.Tensor | None = None) -> torch.Tensor:
+    """All-device pass 2, one byte per pair row: pass-1 outputs -> decoded
+    bytes (kernel ``decode_pass2_stride1``).
+
+    Arguments and result as for :func:`decode_pass2_stride2`, with ``pair``
+    the stride-1 pair rows of pass 1 (``rows="stride1"``).
+
+    Contract differences from the JAX package's ``decode_pass2_device``:
+    it takes ``totals`` where this takes ``words`` (the offsets of the
+    words replace its reversed walk); its variable-flavor codes carry each
+    step's epoch start in their high bits (``code | epoch_start << 12``),
+    where this reads it from ``sched`` row 1 and takes plain wire codes;
+    its pair rows are in its kernel layout (G, S, sub, 128), these
+    block-major [N, S].  CPU tensors run
+    :func:`decode_pass2_device_reference`; CUDA tensors run the kernel, and
+    anything else raises.
+    """
+    return _pass2("decode_pass2_stride1", decode_pass2_device_reference,
+                  codes, words, pair, n_codes, block_size, spec, sched)
+
+
+def _walk_start(codes, words, n_codes, block_size, spec, sched):
+    """Shared start of the plain pass-2 walks, vectorised over code slots:
+    writes every one-byte word (a root, or an epoch's first code) into the
+    flat output and returns it with the state of the other slots' walks
+    (block, node, last position, first position, pair-row base)."""
     alphabet, first_free = _table_params(spec)
     N, S = codes.shape
     dev = codes.device
-    fn = build.load("decode_pass2").decode_pass2_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
-                   + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p])
-    with torch.cuda.device(dev):
-        ends = _word_ends(words, n_codes)
-        out = torch.zeros((N, block_size), dtype=torch.uint8, device=dev)
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(codes.data_ptr(), ends.data_ptr(), pair2.data_ptr(),
-                n_codes.data_ptr(),
-                None if sched is None else sched.data_ptr(),
-                N, S, block_size, alphabet, first_free, out.data_ptr(),
-                PASS2_THREADS_PER_CTA, stream)
-    build.check_launch("decode_pass2", rc)
-    return out
+    B = block_size
+    ends = _word_ends(words, n_codes).to(torch.int64).clamp(max=B)
+    starts = torch.cat(
+        [torch.zeros((N, 1), dtype=torch.int64, device=dev), ends[:, :-1]],
+        dim=1)
+    t = torch.arange(S, device=dev)
+    est = (sched[1].to(torch.int64) if sched is not None
+           else torch.zeros(S, dtype=torch.int64, device=dev))
+    codes = codes.to(torch.int64)
+    flat = torch.zeros(N * B, dtype=torch.uint8, device=dev)
+    valid = ends > starts
+    lit = valid & ((t == est)[None, :] | (codes < alphabet))
+    n_i, t_i = lit.nonzero(as_tuple=True)
+    c = codes[n_i, t_i]
+    flat[n_i * B + starts[n_i, t_i]] = torch.where(
+        c < alphabet, c, 0).to(torch.uint8)
+    n_i, t_i = (valid & ~lit).nonzero(as_tuple=True)
+    return flat, (n_i, codes[n_i, t_i], ends[n_i, t_i] - 1, starts[n_i, t_i],
+                  est[t_i] + 1 - first_free)
 
 
 def decode_pass2_stride2_reference(codes: torch.Tensor, words: torch.Tensor,
@@ -447,32 +533,12 @@ def decode_pass2_stride2_reference(codes: torch.Tensor, words: torch.Tensor,
     slot writes its word's last bytes first, two per pair row, as the
     kernel's threads do.
     """
-    alphabet, first_free = _table_params(spec)
+    alphabet, _ = _table_params(spec)
     N, S = codes.shape
-    dev = codes.device
     B = block_size
-    ends = _word_ends(words, n_codes).to(torch.int64).clamp(max=B)
-    starts = torch.cat(
-        [torch.zeros((N, 1), dtype=torch.int64, device=dev), ends[:, :-1]],
-        dim=1)
-    t = torch.arange(S, device=dev)
-    est = (sched[1].to(torch.int64) if sched is not None
-           else torch.zeros(S, dtype=torch.int64, device=dev))
-    codes = codes.to(torch.int64)
     pair = pair2.to(torch.int64).reshape(-1)
-    flat = torch.zeros(N * B, dtype=torch.uint8, device=dev)
-    valid = ends > starts
-    lit = valid & ((t == est)[None, :] | (codes < alphabet))
-    n_i, t_i = lit.nonzero(as_tuple=True)
-    c = codes[n_i, t_i]
-    flat[n_i * B + starts[n_i, t_i]] = torch.where(
-        c < alphabet, c, 0).to(torch.uint8)
-
-    n_i, t_i = (valid & ~lit).nonzero(as_tuple=True)
-    node = codes[n_i, t_i]
-    pos = ends[n_i, t_i] - 1
-    lo = starts[n_i, t_i]
-    base = est[t_i] + 1 - first_free
+    flat, (n_i, node, pos, lo, base) = _walk_start(codes, words, n_codes, B,
+                                                   spec, sched)
     while n_i.numel():
         root = node < alphabet
         flat[n_i[root] * B + pos[root]] = node[root].to(torch.uint8)
@@ -494,31 +560,77 @@ def decode_pass2_stride2_reference(codes: torch.Tensor, words: torch.Tensor,
     return flat.reshape(N, B)
 
 
+def decode_pass2_device_reference(codes: torch.Tensor, words: torch.Tensor,
+                                  pair: torch.Tensor, n_codes: torch.Tensor,
+                                  block_size: int,
+                                  spec: LzwSpec | None = None,
+                                  sched: torch.Tensor | None = None):
+    """Plain PyTorch version of :func:`decode_pass2_device`.
+
+    Vectorised over code slots, one loop iteration per chain step: each
+    slot writes its word's last byte first, one per pair row, as the
+    kernel's threads do.
+    """
+    alphabet, _ = _table_params(spec)
+    N, S = codes.shape
+    B = block_size
+    pair = pair.to(torch.int64).reshape(-1)
+    flat, (n_i, node, pos, lo, base) = _walk_start(codes, words, n_codes, B,
+                                                   spec, sched)
+    while n_i.numel():
+        root = node < alphabet
+        flat[n_i[root] * B + pos[root]] = node[root].to(torch.uint8)
+        row = base + node
+        keep = ~root & (row >= 0) & (row < S)
+        n_i, node, pos, lo, base, row = (
+            a[keep] for a in (n_i, node, pos, lo, base, row))
+        d = pair[n_i * S + row]
+        flat[n_i * B + pos] = (d & 0xFF).to(torch.uint8)
+        pos = pos - 1
+        node = (d >> 8) & 0xFFF
+        keep = pos >= lo
+        n_i, node, pos, lo, base = (
+            a[keep] for a in (n_i, node, pos, lo, base))
+    return flat.reshape(N, B)
+
+
 def decode_variable_all_device(payloads_np: np.ndarray, plens_np,
                                spec: LzwSpec, block_size: int,
-                               device="cpu", stage=None):
+                               device="cpu", stage=None,
+                               stride2: bool = True):
     """Whole strict variable-flavor decode on ``device``
-    (``decode_variable_all_device``): :func:`variable_pass1` with stride-2
-    pair rows, then pass 2 (stage ``dec_pass2``).
+    (``decode_variable_all_device``): :func:`variable_pass1` with pair
+    rows, then pass 2 (stage ``dec_pass2``).
+
+    ``stride2`` (the name of ``decode_variable_epochs_run``'s option)
+    picks the walk: stride-2 rows and :func:`decode_pass2_stride2` (the
+    default), or stride-1 rows and :func:`decode_pass2_device`.  The JAX
+    function's ``epoch_split`` and ``pooled`` have no meaning here: pass 2
+    reads each code's epoch start from the schedule rows, so there are no
+    epoch units to split or pool, and this one whole-stream route stands
+    for the JAX package's ``epoch_split=False`` route and for its
+    per-epoch ``stride2=False`` route alike.
 
     Returns (blocks u8[N, block_size], totals, errs, err_codes, strict
     bool[N]); rows whose ``strict`` is False need a general decoder.
     """
     p = variable_pass1(payloads_np, plens_np, spec, block_size, device,
-                       pair2=True, stage=stage)
+                       rows="stride2" if stride2 else "stride1", stage=stage)
+    walk = decode_pass2_stride2 if stride2 else decode_pass2_device
     with (stage or _no_stage)("dec_pass2"):
-        out = decode_pass2_stride2(p.dense, p.words, p.pair, p.counts_t,
-                                   block_size, spec, p.sched)
+        out = walk(p.dense, p.words, p.pair, p.counts_t, block_size, spec,
+                   p.sched)
     return out, p.totals, p.err, p.err_code, p.strict
 
 
 def decode_fixed_all_device(payloads: torch.Tensor, plens: torch.Tensor,
                             block_size: int, little: bool = True,
-                            stage=None):
-    """Whole fixed-12 decode on the payloads' device: pass 1 with stride-2
-    pair rows, then pass 2 (the JAX package's ``decode_pass1_fixed_tpu(
-    pair2=True)`` + ``decode_pass2_stride2``); ``stage`` as for
-    :func:`variable_pass1` (``dec_pass1``, ``dec_pass2``).
+                            stage=None, stride2: bool = True):
+    """Whole fixed-12 decode on the payloads' device: pass 1 with pair
+    rows, then pass 2 (the JAX package's ``decode_pass1_fixed_tpu`` +
+    ``decode_pass2_stride2``, or with ``stride2=False`` its stride-1 rows
+    + ``decode_pass2_device``); ``stage`` as for :func:`variable_pass1`
+    (``dec_pass1``, ``dec_pass2``).
 
     Returns (blocks u8[N, block_size], totals, errs, err_codes).
     """
@@ -526,7 +638,8 @@ def decode_fixed_all_device(payloads: torch.Tensor, plens: torch.Tensor,
     with stage("dec_pass1"):
         words, n_codes, totals, err, err_code, codes, pair = (
             decode_pass1_fixed(payloads, plens, block_size, little,
-                               pair2=True))
+                               rows="stride2" if stride2 else "stride1"))
+    walk = decode_pass2_stride2 if stride2 else decode_pass2_device
     with stage("dec_pass2"):
-        out = decode_pass2_stride2(codes, words, pair, n_codes, block_size)
+        out = walk(codes, words, pair, n_codes, block_size)
     return out, totals, err, err_code

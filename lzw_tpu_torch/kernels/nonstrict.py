@@ -289,7 +289,7 @@ def decode_variable_nonstrict_device(payloads, plens, spec: LzwSpec,
         sched_t = torch.from_numpy(sched_arr).to(device)
     with stage("dec_pass1"):
         words, totals, errs, err_codes, pair = decode_pass1(
-            dense_t, cnt_t, spec, block_size, sched_t, pair2=True
+            dense_t, cnt_t, spec, block_size, sched_t, rows="stride2"
         )
     errs = errs.cpu().numpy()
     if errs.any():

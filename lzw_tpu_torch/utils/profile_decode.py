@@ -123,7 +123,8 @@ def main() -> int:
     for i, p in enumerate(payloads):
         mat[i, : len(p)] = np.frombuffer(p, np.uint8)
         plens[i] = len(p)
-    p = tdec.variable_pass1(mat, plens, spec, 1 << 16, "cuda", pair2=True)
+    p = tdec.variable_pass1(mat, plens, spec, 1 << 16, "cuda",
+                           rows="stride2")
     wrapper = cuda_ms(lambda: tdec.decode_pass2_stride2(
         p.dense, p.words, p.pair, p.counts_t, 1 << 16, spec, p.sched))
     glue = cuda_ms(lambda: tdec._word_ends(p.words, p.counts_t))

@@ -46,6 +46,23 @@ def _blocks(spec, n, size, seed):
     return mat, lens
 
 
+def _decode_inputs(spec, dense, counts, cuda):
+    """Pack the encoder's dense codes and unpack them again: pass 1's codes,
+    counts and schedule rows as the container's decode gives them."""
+    if not spec.variable:
+        pay, nb = tenc.pack12(dense, counts, True)
+        codes, cnt_t = tdec.unpack12(pay, nb, True)
+        return codes.contiguous(), cnt_t, None
+    width = max(int(counts.max()), 1)
+    pay, nb = tsched.pack_variable(dense[:, :width], counts, spec)
+    cnt, strict, sched, S = tdec.prepare_variable_decode(
+        pay.cpu().numpy(), nb.cpu().numpy(), spec)
+    assert strict.all()
+    cnt_t = torch.from_numpy(cnt.astype(np.int32)).to(cuda)
+    codes, _ = tsched.unpack_variable_device(pay, cnt_t, spec, S)
+    return codes, cnt_t, torch.from_numpy(sched).to(cuda)
+
+
 @pytest.mark.parametrize("name", list(SPECS))
 def test_kernels_match_plain(name, cuda):
     spec = SPECS[name]
@@ -59,23 +76,11 @@ def test_kernels_match_plain(name, cuda):
         assert torch.equal(got, want)
     assert build.LAUNCHES["encode_parse"] == before["encode_parse"] + 1
 
-    dense, counts = enc[0], enc[1]
-    if spec.variable:
-        width = max(int(counts.max()), 1)
-        pay, nb = tsched.pack_variable(dense[:, :width], counts, spec)
-        cnt, strict, sched, S = tdec.prepare_variable_decode(
-            pay.cpu().numpy(), nb.cpu().numpy(), spec)
-        assert strict.all()
-        cnt_t = torch.from_numpy(cnt.astype(np.int32)).to(cuda)
-        codes, _ = tsched.unpack_variable_device(pay, cnt_t, spec, S)
-        sched_t = torch.from_numpy(sched).to(cuda)
-    else:
-        pay, nb = tenc.pack12(dense, counts, True)
-        codes, cnt_t = tdec.unpack12(pay, nb, True)
-        sched_t = None
-    got = tdec.decode_pass1(codes, cnt_t, spec, 6000, sched_t, pair2=True)
+    codes, cnt_t, sched_t = _decode_inputs(spec, enc[0], enc[1], cuda)
+    got = tdec.decode_pass1(codes, cnt_t, spec, 6000, sched_t,
+                            rows="stride2")
     want = tdec.decode_pass1_reference(codes, cnt_t, spec, 6000, sched_t,
-                                       pair2=True)
+                                       rows="stride2")
     for g, w in zip(got, want):
         assert torch.equal(g, w)
     assert build.LAUNCHES["decode_pass1"] == before["decode_pass1"] + 1
@@ -87,6 +92,38 @@ def test_kernels_match_plain(name, cuda):
                                               6000, spec, sched_t)
     assert torch.equal(out, ref)
     assert build.LAUNCHES["decode_pass2"] == before["decode_pass2"] + 1
+    out = out.cpu().numpy()
+    for i in range(len(lens)):
+        assert int(totals[i]) == lens[i]
+        assert (out[i, : lens[i]] == mat[i, : lens[i]]).all()
+
+
+@pytest.mark.parametrize("name", list(SPECS))
+def test_stride1_kernels_match_plain(name, cuda):
+    # Pass 1's stride-1 pair rows and the stride-1 pass 2 against their
+    # plain versions, and the bytes against the blocks.
+    spec = SPECS[name]
+    mat, lens = _blocks(spec, 16, 6000, seed=len(name) + 10)
+    lens_t = torch.from_numpy(lens).to(cuda)
+    dense, counts, _, _ = tenc.encode_blocks_codes(
+        torch.from_numpy(mat).to(cuda), lens_t, spec)
+    codes, cnt_t, sched_t = _decode_inputs(spec, dense, counts, cuda)
+    before = dict(build.LAUNCHES)
+    got = tdec.decode_pass1(codes, cnt_t, spec, 6000, sched_t,
+                            rows="stride1")
+    want = tdec.decode_pass1_reference(codes, cnt_t, spec, 6000, sched_t,
+                                       rows="stride1")
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    words, totals, _, _, pair = got
+    out = tdec.decode_pass2_device(codes, words, pair, cnt_t, 6000, spec,
+                                   sched_t)
+    ref = tdec.decode_pass2_device_reference(codes, words, pair, cnt_t,
+                                             6000, spec, sched_t)
+    assert torch.equal(out, ref)
+    assert build.LAUNCHES["decode_pass2_stride1"] == (
+        before["decode_pass2_stride1"] + 1)
+    assert build.LAUNCHES["decode_pass2"] == before["decode_pass2"]
     out = out.cpu().numpy()
     for i in range(len(lens)):
         assert int(totals[i]) == lens[i]

@@ -158,6 +158,45 @@ def test_fixed_table_freeze():
     assert _port([data], None, len(data))[1][0] > 4096 - 256, "never froze"
 
 
+@pytest.mark.parametrize("compact", [False, "bucket", True],
+                         ids=["k6_step", "k7_bucket", "k8_compact"])
+@pytest.mark.parametrize("name", ["gif7", "tiff", "fixed"])
+def test_legacy_kernels(name, compact):
+    # K6 (step-indexed table), K7 (bucketed table) and K8 (per-cell
+    # compaction) differ from K2 only in the TPU's dictionary layout and
+    # write the same step slots, so the port's one parse kernel stands for
+    # them.  Shapes of the JAX variant tests (tests/test_encode_pallas*.py):
+    # 128-byte blocks, as compact=False's step-indexed table allows at most
+    # 4 KiB; interpret mode, group 128, cell 64.
+    spec = None if name == "fixed" else SPECS[name]
+    hi = 256 if spec is None else 1 << spec.code_size
+    blocks = _random_blocks(len(name), hi) + [
+        bytes(b % hi for b in (b"compressible text " * 8)[:128]),
+        bytes([3] * 100), b"",
+    ]
+    mat, lens = _matrix(blocks, 128, 128)
+    n = len(blocks)
+    kw = dict(interpret=True, group=128, cell=64, seg=64, compact=compact)
+    if spec is not None:
+        want = encode_pallas.encode_blocks_variable_codes_tpu(
+            jnp.asarray(mat), jnp.asarray(lens), spec, 128, **kw)
+        _assert_same(want, _port(blocks, spec, 128), n)
+        return
+    want = encode_pallas._run_encode_kernel(
+        jnp.asarray(mat), jnp.asarray(lens), 128, None, True, 128, 64, 64,
+        compact=compact,
+    )
+    _assert_same(want, _port(blocks, None, 128), n)
+    pay, nb = encode_pallas.encode_blocks_fixed_tpu(
+        jnp.asarray(mat), jnp.asarray(lens), 128, little=True, **kw)
+    p_pay, p_nb = tenc.encode_blocks_fixed(
+        torch.from_numpy(mat[:n]), torch.from_numpy(lens[:n]), True)
+    np.testing.assert_array_equal(p_nb.numpy(), np.asarray(nb)[:n])
+    pay = np.asarray(pay)
+    for i in range(n):
+        assert bytes(p_pay[i, : p_nb[i]].numpy()) == bytes(pay[i, : nb[i]])
+
+
 @pytest.mark.parametrize("data, err, code", [
     (bytes([0, 1, 8, 3]), 1, 8),      # out-of-range byte after the first
     (bytes([200]), 0, 0),             # the first byte is never checked

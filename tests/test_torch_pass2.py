@@ -67,17 +67,18 @@ def _rows(pair4d):
     return a.transpose(0, 2, 3, 1).reshape(G * sub * lanes, S)
 
 
-def _jax_pass1(name, datas, block_size):
-    """JAX pass 1 with pair2 rows.  Returns (codes, n_codes, words, totals,
-    errs, pair, sched) as numpy, pair block-major and sched None for
-    fixed-12, and the JAX layout of the pair rows."""
+def _jax_pass1(name, datas, block_size, pair2=True):
+    """JAX pass 1 with stride-2 rows (``pair2``) or stride-1 rows.  Returns
+    (codes, n_codes, words, totals, errs, pair, sched) as numpy, pair
+    block-major and sched None for fixed-12, and the JAX layout of the pair
+    rows."""
     spec = SPECS[name]
     payloads = [oracle.encode_bytes(d, spec) for d in datas]
     if not spec.variable:
         mat, plens = _matrix(payloads, 3)
         words, nc, tot, err, _, (pair, codes) = dp.decode_pass1_fixed_tpu(
             jnp.asarray(mat), jnp.asarray(plens), block_size, interpret=True,
-            group=128, cell=64, seg=64, pair2=True,
+            group=128, cell=64, seg=64, pair2=pair2,
         )
         return (np.asarray(codes), np.asarray(nc), np.asarray(words),
                 np.asarray(tot), np.asarray(err), _rows(pair), None), pair
@@ -87,7 +88,7 @@ def _jax_pass1(name, datas, block_size):
     words, stats, pair, dense, ok = dp._variable_pass1_from_payloads(
         jnp.asarray(mat), jnp.asarray(counts.astype(np.int32)),
         jnp.asarray(sched), spec, S, block_size, True, 128, 64, 64,
-        pair2=True,
+        pair2=pair2,
     )
     assert np.asarray(ok).all()
     stats = np.asarray(stats)
@@ -108,7 +109,7 @@ def test_pair2_rows_match_jax(name):
     S = codes.shape[1]
     got = tdec.decode_pass1(
         _t(codes), _t(nc), spec if spec.variable else None, 8192,
-        None if sched is None else _t(sched), pair2=True,
+        None if sched is None else _t(sched), rows="stride2",
     )
     p_words, p_tot, p_err, _, p_pair = (a.numpy() for a in got)
     np.testing.assert_array_equal(p_err, err)
@@ -116,11 +117,15 @@ def test_pair2_rows_match_jax(name):
     np.testing.assert_array_equal(p_words, words[:, :S])
     np.testing.assert_array_equal(p_pair, pair[:, :S])
     assert (p_pair != 0).any()
-    # The pair rows leave the other outputs as they were without them.
-    for a, b in zip(got, tdec.decode_pass1(
+    # The kind of pair rows leaves the other outputs as they were without
+    # them.
+    for rows, n_out in (("none", 4), ("stride1", 5)):
+        other = tdec.decode_pass1(
             _t(codes), _t(nc), spec if spec.variable else None, 8192,
-            None if sched is None else _t(sched))):
-        assert torch.equal(a, b)
+            None if sched is None else _t(sched), rows=rows)
+        assert len(other) == n_out
+        for a, b in zip(got[:4], other[:4]):
+            assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("name", list(SPECS))
