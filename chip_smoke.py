@@ -8,9 +8,9 @@ Run from the repository root, with no arguments::
 Phases, one line each, any failure exits non-zero:
 
 1. device: the CUDA card's name and ``nvidia-smi`` name and power limit;
-2. build: compiles the four CUDA kernels from ``lzw_tpu_torch/kernels/csrc``
-   (nvcc, sm_90a) and the native runtime from ``lzw_tpu/native``, all at
-   once;
+2. build: compiles the eight CUDA kernels from
+   ``lzw_tpu_torch/kernels/csrc`` (nvcc, sm_90a) and the native runtime
+   from ``lzw_tpu_torch/native``, all at once;
 3. kernel vs plain: the encode-parse kernel, pass 1 with its stride-2 and
    with its stride-1 pair rows, and both pass-2 walks (stride-2 and
    stride-1) against their plain PyTorch versions on the card, exact
@@ -40,9 +40,17 @@ Phases, one line each, any failure exits non-zero:
    and no native call, end to end MiB/s of both; then the stride-1 walk
    against its plain version at both shapes (on the kernel's own stride-1
    rows at 64 KiB) and the stride-1 rows against theirs at the fixed-12
-   shape, and pass 1's and the walks' kernel times side by side.
+   shape, and pass 1's and the walks' kernel times side by side;
+8. the probe entry points: ``python -m lzw_tpu_torch.scripts.ablate_kernel
+   all``, ``ablate2``, ``probe_i16`` (and its sweep at T = 256) and
+   ``probe_gpu all`` at the JAX scripts' shapes, counted to launch each
+   of the four probe kernels, every gather OK and the sweep's time
+   following T; then each probe kernel against its plain version on the
+   same inputs in every variant, exact, and the yardstick library calls.
 
-It prints a ``{"kernels": [...]}`` line and ends with
+It prints a ``{"kernels": [...]}`` line, each kernel with its bound (the
+least time for the bytes it must move at 3.35 TB/s, or for its 32-bit
+integer operations at 16.7 T/s, whichever is larger), and ends with
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside the
 repository, it exits non-zero and prints no result.  It imports nothing of
 JAX or of the JAX package ``lzw_tpu``.
@@ -52,13 +60,20 @@ from __future__ import annotations
 
 import json
 import pathlib
-import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
+from typing import NamedTuple
 
 ROOT = pathlib.Path(__file__).resolve().parent
 MiB = 1 << 20
+# H100 SXM at 700 W.  Device memory rate: NVIDIA's data sheet.  32-bit
+# integer add, compare, min/max, select and logical operations: 64 results
+# per SM and clock (CUDA C++ Programming Guide, arithmetic instruction
+# throughput, compute capability 9.0) on 132 SMs at 1.98 GHz, the clock
+# behind the data sheet's 67 TFLOP/s float32 (128 lanes x 2 per SM-clock).
+HBM_BYTES_PER_S = 3.35e12
+INT_OPS_PER_S = 64 * 132 * 1.98e9
 # Each CUDA kernel's source and the TPU kernel it replaces (file:line of the
 # kernel function; see PERF.md for the whole table).
 KERNEL_SOURCES = {
@@ -74,7 +89,18 @@ KERNEL_SOURCES = {
     "decode_pass2_stride1": (
         "lzw_tpu_torch/kernels/csrc/decode_pass2_stride1.cu",
         "lzw_tpu/kernels/decode_pallas.py:1085"),
+    # The probes of the JAX package's scripts (phase 8).
+    "ablate_parse": ("lzw_tpu_torch/kernels/csrc/ablate_parse.cu",
+                     "scripts/ablate_kernel.py:25 (P1a), :120 (P1b)"),
+    "ablate_ring": ("lzw_tpu_torch/kernels/csrc/ablate_ring.cu",
+                    "scripts/ablate2.py:24 (P2)"),
+    "probe_scan": ("lzw_tpu_torch/kernels/csrc/probe_scan.cu",
+                   "scripts/probe_i16.py:29 (P3)"),
+    "probe_gather": ("lzw_tpu_torch/kernels/csrc/probe_gather.cu",
+                     "scripts/probe_tpu.py:31 (P4-a), :51 (P4-b), "
+                     ":82 (P4-b2), :115 (P4-b3)"),
 }
+PROBE_KERNELS = ("ablate_parse", "ablate_ring", "probe_scan", "probe_gather")
 # Calls of the native runtime's decode entry points, by name; the
 # all-device route must make none.
 HOST_CALLS = {"apply_words": 0, "decode_blocks": 0}
@@ -84,29 +110,27 @@ def say(phase: str, msg: str) -> None:
     print(f"[{phase}] {msg}", flush=True)
 
 
-def nvidia_smi_line() -> str:
-    res = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    )
-    return res.stdout.strip().splitlines()[0]
+class Result(NamedTuple):
+    """A kernel against its plain version on the same inputs."""
+
+    err: int  # max_abs_err
+    ms: float  # the kernel's time, CUDA events
+    plain_ms: float  # the plain version's, one call
+    bound_ms: float  # the least time the card could take for the work
+    bound_by: str  # "bytes" or "operations"
+    library_ms: float | None = None  # one PyTorch call of the function
 
 
-def cuda_ms(fn, reps: int = 3) -> float:
-    """Mean milliseconds per call of ``fn`` by CUDA events, after a warm-up."""
-    import torch
-
-    fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+def result(err: int, ms: float, plain_ms: float, n_bytes: float,
+           n_ops: float, library_ms: float | None = None) -> Result:
+    """A Result whose bound is the larger of ``n_bytes`` (each input read
+    once, each output written once) at the memory rate and ``n_ops``
+    32-bit integer operations at their rate."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / INT_OPS_PER_S * 1e3
+    if t_bytes >= t_ops:
+        return Result(err, ms, plain_ms, t_bytes, "bytes", library_ms)
+    return Result(err, ms, plain_ms, t_ops, "operations", library_ms)
 
 
 def once_ms(fn) -> tuple[float, object]:
@@ -189,11 +213,18 @@ def compare_decode(spec, codes, n_codes, block, sched_t, label,
     walk of those rows against their plain versions on the same CUDA
     inputs.
 
-    Returns ({kernel: (max_abs_err, kernel ms, plain ms)}, pass-1 outputs,
-    the walk's bytes); pass 1 with stride-1 rows is named ``decode_pass1
-    stride-1``."""
+    Returns ({kernel: Result}, pass-1 outputs, the walk's bytes); pass 1
+    with stride-1 rows is named ``decode_pass1 stride-1``.  Bounds: pass 1
+    reads the codes and counts and writes a word and a pair row per code
+    and three stats per block; the walk reads the codes, words and rows and
+    writes the decoded bytes; about 16 integer operations per code, and 4
+    per byte written."""
     from lzw_tpu_torch.kernels import decode as tdec
+    from lzw_tpu_torch.utils.card import cuda_ms
 
+    n_blocks, width = codes.shape
+    n = int(n_codes.sum())
+    stats_bytes = 4 * n_blocks + (0 if sched_t is None else 8 * width)
     if stride2:
         rows, p1_name, name = "stride2", "decode_pass1", "decode_pass2"
         walk, plain = (tdec.decode_pass2_stride2,
@@ -211,13 +242,18 @@ def compare_decode(spec, codes, n_codes, block, sched_t, label,
         plain_ms, ref = once_ms(
             lambda: tdec.decode_pass1_reference(*args, rows=rows))
         ms = cuda_ms(lambda: tdec.decode_pass1(*args, rows=rows))
-        res[p1_name] = (max_abs_err(dec, ref), ms, plain_ms)
+        res[p1_name] = result(max_abs_err(dec, ref), ms, plain_ms,
+                              4 * n + stats_bytes + 8 * n + 12 * n_blocks,
+                              16 * n)
     args = (codes, dec[0], dec[4], n_codes, block, spec, sched_t)
     out = walk(*args)
     plain_ms, ref = once_ms(lambda: plain(*args))
-    res[name] = (max_abs_err((out,), (ref,)), cuda_ms(lambda: walk(*args)),
-                 plain_ms)
-    bad = {k: v[0] for k, v in res.items() if v[0]}
+    out_bytes = int(dec[1].sum())
+    res[name] = result(max_abs_err((out,), (ref,)),
+                       cuda_ms(lambda: walk(*args)), plain_ms,
+                       12 * n + stats_bytes + out_bytes,
+                       16 * n + 4 * out_bytes)
+    bad = {k: v.err for k, v in res.items() if v.err}
     if bad:
         raise AssertionError(f"{label}: kernel != plain, max_abs_err {bad}")
     if int(dec[2].abs().sum()):
@@ -232,10 +268,13 @@ def compare_kernels(spec, mat, lens, block, device, label,
     against the blocks; with ``stride1`` also pass 1 with stride-1 rows and
     the stride-1 walk.
 
-    Returns per-kernel (max_abs_err, kernel ms, plain ms)."""
+    Returns {kernel: Result}.  The encoder's bound: it reads the blocks'
+    bytes and lengths and writes each code and three stats per block, about
+    8 integer operations per input byte."""
     import torch
 
     from lzw_tpu_torch.kernels import encode as tenc
+    from lzw_tpu_torch.utils.card import cuda_ms
 
     blocks_t = torch.from_numpy(mat).to(device)
     lens_t = torch.from_numpy(lens).to(device)
@@ -268,7 +307,11 @@ def compare_kernels(spec, mat, lens, block, device, label,
                            torch.where(keep, blocks_t, 0)):
             raise AssertionError(
                 f"{label}: pass 2 did not give the input back")
-    res["encode_parse"] = (err_e, ms_e, plain_ms_e)
+    n_in = int(lens.sum())
+    res["encode_parse"] = result(
+        err_e, ms_e, plain_ms_e,
+        n_in + 4 * len(lens) + 4 * int(counts.sum()) + 12 * len(lens),
+        8 * n_in)
     say("kernels", f"{label}: N={mat.shape[0]} B={block} "
         f"codes={int(counts.sum())} max code/block={int(counts.max())}; "
         + kernel_times(res) + ", kernel == plain exactly, "
@@ -276,9 +319,13 @@ def compare_kernels(spec, mat, lens, block, device, label,
     return res
 
 
-def kernel_times(res) -> str:
-    return ", ".join(f"{name} {ms:.3f} ms (plain {plain:.1f} ms)"
-                     for name, (_, ms, plain) in sorted(res.items()))
+def kernel_times(res: dict[str, Result]) -> str:
+    return ", ".join(
+        f"{name} {r.ms:.4f} ms (plain {r.plain_ms:.1f} ms, bound "
+        f"{r.bound_ms:.5f} ms by {r.bound_by}"
+        + ("" if r.library_ms is None else
+           f", library call {r.library_ms:.4f} ms") + ")"
+        for name, r in sorted(res.items()))
 
 
 def count_host_calls() -> None:
@@ -485,8 +532,7 @@ def run_stride1(spec, data: bytes, block: int, label: str, device="cuda"):
     for fixed-12 also the stride-1 rows against theirs; last the kernel
     times of pass 1 by row kind and of both walks.
 
-    Returns (the four runs' launch counts, {kernel: (max_abs_err, kernel
-    ms, plain ms)})."""
+    Returns (the four runs' launch counts, {kernel: Result})."""
     import numpy as np
     import torch
 
@@ -494,6 +540,7 @@ def run_stride1(spec, data: bytes, block: int, label: str, device="cuda"):
     from lzw_tpu_torch.kernels import decode as tdec
     from lzw_tpu_torch.parallel import framing
     from lzw_tpu_torch.spec import Endianness
+    from lzw_tpu_torch.utils.card import cuda_ms
 
     container = BlockParallelCodec(spec, block_size=block,
                                    device=device).encode(data)
@@ -580,6 +627,139 @@ def run_stride1(spec, data: bytes, block: int, label: str, device="cuda"):
     return launches, res
 
 
+def run_probes(device):
+    """Phase 8: the four probe CLIs as a user runs them, at the JAX
+    scripts' shapes, counted to launch each probe kernel; every gather must
+    be right and the sweep's time must follow its step count.  Then each
+    probe kernel against its plain version on the same inputs, every
+    variant, and the library calls that compute P4-a and P4-b.
+
+    Returns (the launch counts, {kernel: Result}); each kernel's Result is
+    that of the variant named in its source's note: P1 ``scan``, P2
+    ``ring``, P3 int32 at T = 512, P4-b."""
+    import numpy as np
+    import torch
+
+    from lzw_tpu_torch.kernels import ablate, probe
+    from lzw_tpu_torch.scripts import (ablate2, ablate_kernel, probe_gpu,
+                                       probe_i16)
+    from lzw_tpu_torch.utils.card import cuda_ms
+
+    def drive():
+        p1 = ablate_kernel.main(["all"])
+        p2 = ablate2.main([])
+        p3 = {512: probe_i16.main([])}
+        p3[256] = {str(dt).removeprefix("torch."): probe_i16.run(dt, 256)
+                   for dt in (torch.int32, torch.int16)}
+        return p1, p2, p3, probe_gpu.main(["all"])
+
+    _, (p1, p2, p3, p4), launches = timed_run(
+        drive, {name: 1 for name in PROBE_KERNELS}, "probes")
+    if not (p4["a"] and p4["b"][0] and all(p4["b3"].values())):
+        raise AssertionError(f"probe_gpu: a probe is WRONG: {p4}")
+    for dt, ms in p3[512].items():
+        # At half the steps a sweep that really runs takes about half the
+        # time; one the compiler removed would not.
+        if ms < 1.3 * p3[256][dt]:
+            raise AssertionError(
+                f"probe_scan {dt}: {ms:.4f} ms at T=512, {p3[256][dt]:.4f} "
+                "ms at T=256: the time does not follow the steps")
+
+    res, errs = {}, {}
+    x = ablate_kernel.make_input(device)
+    for v in ablate_kernel.ORIG + ablate_kernel.GRID:
+        for tag, xi in (("", x), (" x+4", x + 4)):
+            got = ablate.ablate_parse(xi, v)
+            plain_ms, ref = once_ms(
+                lambda: ablate.ablate_parse_reference(xi, v))
+            errs[f"P1 {v}{tag}"] = max_abs_err((got,), (ref,))
+            if v == "scan" and not tag:
+                res["ablate_parse"] = result(
+                    errs[f"P1 {v}"], p1[v][0], plain_ms, 8 * x.numel(),
+                    8 * x.numel())
+    x = ablate2.make_input(device)
+    for v in ablate2.VARIANTS:
+        got = ablate.ablate_ring(x, v)
+        plain_ms, ref = once_ms(lambda: ablate.ablate_ring_reference(x, v))
+        errs[f"P2 {v}"] = max_abs_err((got,), (ref,))
+        if v == "ring":
+            # On these inputs a key sits in at most one ring row at a time
+            # (it is written only after a miss), so the function needs one
+            # lookup per lane and step, as P1's table; the kernel's scan of
+            # all 512 rows is the TPU's design, not the function's work.
+            res["ablate_ring"] = result(
+                errs["P2 ring"], p2[v][0], plain_ms, 8 * x.numel(),
+                8 * x.numel())
+    for t in (512, 256):
+        for dt in (torch.int32, torch.int16):
+            x = probe_i16.make_input(dt, device, t)
+            got = probe.probe_scan(x, rows=probe_i16.S)
+            plain_ms, ref = once_ms(
+                lambda: probe.probe_scan_reference(x, rows=probe_i16.S))
+            name = str(dt).removeprefix("torch.")
+            errs[f"P3 {name} T={t}"] = max_abs_err((got,), (ref,))
+            # The script's zero fill gives 0 whatever the sweep computes;
+            # at 998 a column is 998 where a step's value (1-999) exceeds
+            # it and 0 elsewhere, both common at these T.
+            got = probe.probe_scan(x, rows=probe_i16.S, fill=998)
+            ref = probe.probe_scan_reference(x, rows=probe_i16.S, fill=998)
+            errs[f"P3 {name} T={t} fill 998"] = max_abs_err((got,), (ref,))
+            if not 0 < int((ref == 998).sum()) < ref.numel():
+                raise AssertionError(f"P3 {name} T={t}: fill 998 shows no "
+                                     "mix of 998 and 0")
+            if t == 512 and dt == torch.int32:
+                res["probe_scan"] = result(
+                    errs[f"P3 {name} T={t}"], p3[t][name], plain_ms,
+                    x.numel() * 4 + got.numel() * 4,
+                    3 * t * probe_i16.S * x[0, 0].numel())
+    x = torch.arange(8 * 128, dtype=torch.int32, device=device).reshape(
+        8, 128)
+    errs["P4-a"] = max_abs_err((probe.affine(x),),
+                               (probe.affine_reference(x),))
+    a_ms = cuda_ms(lambda: probe.affine(x), 20)
+    a_lib = cuda_ms(lambda: x * 2 + 1, 20)
+    rng = np.random.default_rng(0)
+    for height in (8192, *probe_gpu.HEIGHTS):
+        tab, idx = probe_gpu.gather_inputs(height, 128, rng)
+        got = probe.gather_lanes(tab, idx)
+        plain_ms, ref = once_ms(lambda: probe.gather_lanes_reference(tab, idx))
+        errs[f"P4-b H={height}"] = max_abs_err((got,), (ref,))
+        if height == 8192:
+            idx64 = idx.long()
+            res["probe_gather"] = result(
+                errs["P4-b H=8192"], p4["b"][1], plain_ms,
+                3 * 4 * idx.numel(), idx.numel(),
+                cuda_ms(lambda: torch.gather(tab, 0, idx64), 20))
+            got = probe.gather_loop(tab, idx)
+            loop_plain_ms, ref = once_ms(
+                lambda: probe.gather_loop_reference(tab, idx))
+            errs["P4-b2"] = max_abs_err((got,), (ref,))
+            # The slope between two chain lengths leaves out the launch.
+            chain_ms = {n: cuda_ms(lambda n=n: probe.gather_loop(tab, idx, n),
+                                   20) for n in (256, 4096)}
+    bad = {k: v for k, v in errs.items() if v}
+    if bad:
+        raise AssertionError(f"probes: kernel != plain, max_abs_err {bad}")
+    say("probes", "every probe kernel == its plain version (max_abs_err 0): "
+        + ", ".join(errs) + f"; launches {launches}")
+    say("probes", "P1 ablate_parse ms by variant (G=2 B=4096 x 128 lanes): "
+        + ", ".join(f"{v} {ms:.4f}" for v, (ms, _) in p1.items())
+        + "; P2 ablate_ring ms (4096 steps x 1024 lanes, cell 512): "
+        + ", ".join(f"{v} {ms:.4f}" for v, (ms, _) in p2.items()))
+    say("probes", "P3 probe_scan best ms: " + ", ".join(
+        f"{dt} T={t} {ms:.4f}" for t, by in p3.items()
+        for dt, ms in by.items())
+        + f"; int32/int16 at T=512 {p3[512]['int32'] / p3[512]['int16']:.3f}")
+    say("probes", f"P4-a {a_ms:.4f} ms (library call x * 2 + 1 "
+        f"{a_lib:.4f} ms); P4-b2 {p4['b2']:.1f} ns per dependent gather of "
+        f"128 (256 in a chain, plain {loop_plain_ms:.1f} ms), "
+        f"{(chain_ms[4096] - chain_ms[256]) / 3840 * 1e6:.1f} ns per "
+        f"dependent gather between chains of 256 ({chain_ms[256]:.4f} ms) "
+        f"and 4096 ({chain_ms[4096]:.4f} ms); P4-b3 every height OK")
+    say("kernels", "probes at the scripts' shapes: " + kernel_times(res))
+    return launches, res
+
+
 def main() -> int:
     if not (ROOT / "lzw_tpu_torch").is_dir():
         print("chip_smoke.py: lzw_tpu_torch/ not found beside the script; "
@@ -597,6 +777,7 @@ def main() -> int:
     from lzw_tpu_torch import Endianness, LzwSpec
     from lzw_tpu_torch.kernels import build
     from lzw_tpu_torch.native import runtime
+    from lzw_tpu_torch.utils.card import nvidia_smi_line
     from lzw_tpu_torch.utils.corpus import load_tokyo_pixels
 
     # 1. Device.
@@ -677,12 +858,19 @@ def main() -> int:
     add(run_stride1(fixed, tile(tokyo, 32 * MiB), 1 << 12,
                     "fixed-12 image")[0])
 
+    # 8. The probe entry points.
+    launches, probes = run_probes(device)
+    add([launches])
+    full.update(probes)
+
     kernels = []
     for name, (src, rep) in KERNEL_SOURCES.items():
-        err, ms, plain_ms = full[name]
+        r = full[name]
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": rep, "launches": total[name],
-                        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms})
+                        "max_abs_err": r.err, "ms": r.ms,
+                        "plain_ms": r.plain_ms, "bound_ms": r.bound_ms,
+                        "bound_by": r.bound_by, "library_ms": r.library_ms})
     print(json.dumps({"kernels": kernels}))
     say("done", f"wall time {time.perf_counter() - t_start:.1f} s")
     print(smi)

@@ -2,8 +2,8 @@
 
 Block-parallel LZW, byte-exact with salzweg's three wire flavors, over the
 LZWT block container.  The JAX package ``lzw_tpu`` is the reference; this
-package imports torch and numpy and never jax or ``lzw_tpu``.  The only
-code the two share is the native C++ runtime's source, compiled by path.
+package imports torch and numpy and never jax or ``lzw_tpu``, and reads no
+file of it: the native C++ runtime's source is a copy of the JAX package's.
 """
 
 from lzw_tpu_torch.parallel import BlockParallelCodec

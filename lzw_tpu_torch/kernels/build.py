@@ -14,7 +14,8 @@ no fallback to the plain versions for CUDA tensors.
 
 Every wrapper adds one to its kernel's count in :data:`LAUNCHES` where it
 launches the kernel, so a run can show that its main path went through the
-kernels.
+kernels.  A source with several launch functions (``probe_gather.cu``)
+counts them under its one name.
 """
 
 from __future__ import annotations
@@ -34,7 +35,9 @@ _HERE = pathlib.Path(__file__).resolve().parent
 CSRC = _HERE / "csrc"
 BUILD_DIR = _HERE / "build"
 KERNELS = ("encode_parse", "decode_pass1", "decode_pass2",
-           "decode_pass2_stride1")
+           "decode_pass2_stride1",
+           # The probes and ablations of the JAX package's scripts.
+           "ablate_parse", "ablate_ring", "probe_scan", "probe_gather")
 DEFAULT_NVCC = "/usr/local/cuda/bin/nvcc"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]

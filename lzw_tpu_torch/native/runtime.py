@@ -1,7 +1,8 @@
-"""ctypes bindings over the native host runtime, built from the shared source.
+"""ctypes bindings over the native host runtime, built from the port's source.
 
-The C++ source is ``lzw_tpu/native/lzw_native.cpp``, compiled by path (the
-JAX package's Python bindings import jax, so they are not reused) into
+The C++ source is ``lzw_tpu_torch/native/lzw_native.cpp``, a byte-for-byte
+copy of the JAX package's ``lzw_tpu/native/lzw_native.cpp`` (whose Python
+bindings import jax, so they are not reused), compiled into
 ``lzw_tpu_torch/native/build/``.  Only the calls the container needs are
 bound: the threaded block encode and decode, the single-stream decode of the
 verify sample, and ``apply_words``, the host pass 2 that resolves the
@@ -31,9 +32,9 @@ from lzw_tpu_torch.spec import (
 
 __all__ = ["NativeRuntime", "get_runtime", "SOURCE"]
 
-_ROOT = pathlib.Path(__file__).resolve().parents[2]
-SOURCE = _ROOT / "lzw_tpu" / "native" / "lzw_native.cpp"
-_BUILD_DIR = pathlib.Path(__file__).resolve().parent / "build"
+_HERE = pathlib.Path(__file__).resolve().parent
+SOURCE = _HERE / "lzw_native.cpp"
+_BUILD_DIR = _HERE / "build"
 _LIB = _BUILD_DIR / "liblzw_native.so"
 
 _OK = 0

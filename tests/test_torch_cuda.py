@@ -16,7 +16,7 @@ import pytest
 import torch
 
 from lzw_tpu_torch import BlockParallelCodec, Endianness, LzwSpec
-from lzw_tpu_torch.kernels import build
+from lzw_tpu_torch.kernels import ablate, build, probe
 from lzw_tpu_torch.kernels import decode as tdec
 from lzw_tpu_torch.kernels import encode as tenc
 from lzw_tpu_torch.kernels import schedule as tsched
@@ -160,3 +160,74 @@ def test_container_device_pass2_on_card(name, cuda, monkeypatch):
     before = dict(build.LAUNCHES)
     assert codec.decode(container) == data
     assert build.LAUNCHES["decode_pass2"] == before["decode_pass2"] + 1
+
+
+def _parse_input(rng, G, B, L):
+    # Half the lanes binary, half random bytes: the lockstep minimum of nxt
+    # stays low, so the window variants drop inserts of the random lanes.
+    x = rng.integers(0, 256, (G, B, L)).astype(np.int32)
+    x[:, :, : L // 2] &= 1
+    return x
+
+
+@pytest.mark.parametrize("variant", list(ablate.PARSE_VARIANTS))
+def test_ablate_parse_matches_plain(variant, cuda):
+    rng = np.random.default_rng(1)
+    for x in (_parse_input(rng, 2, 2048, 96),
+              rng.integers(0, 256, (1, 3000, 64)).astype(np.int32) + 4):
+        x_t = torch.from_numpy(x).to(cuda)
+        before = build.LAUNCHES["ablate_parse"]
+        got = ablate.ablate_parse(x_t, variant)
+        assert build.LAUNCHES["ablate_parse"] == before + 1
+        assert torch.equal(got, ablate.ablate_parse_reference(x_t, variant))
+
+
+@pytest.mark.parametrize("cell", [256, 512])
+@pytest.mark.parametrize("variant", list(ablate.RING_VARIANTS))
+def test_ablate_ring_matches_plain(variant, cell, cuda):
+    rng = np.random.default_rng(2)
+    x = rng.integers(0, 256, (1024, 8, 32)).astype(np.int32)
+    x[:, :4] &= 3  # repeated keys in the ring
+    x_t = torch.from_numpy(x).to(cuda)
+    before = build.LAUNCHES["ablate_ring"]
+    got = ablate.ablate_ring(x_t, variant, cell=cell)
+    assert build.LAUNCHES["ablate_ring"] == before + 1
+    assert torch.equal(got, ablate.ablate_ring_reference(x_t, variant,
+                                                         cell=cell))
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int16])
+def test_probe_scan_matches_plain(dtype, cuda):
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(rng.integers(-1000, 1000, (1, 40, 16, 32))).to(
+        dtype).to(cuda)
+    x[0, 0, :4] = 965  # equal to the fill: not below it
+    # The script's zero fill gives 0 whatever the sweep computes; at 965 a
+    # column is 965 where a step's value exceeds it (about half of them)
+    # and 0 elsewhere, so the compare, select and max show.
+    for fill in (0, 965):
+        before = build.LAUNCHES["probe_scan"]
+        got = probe.probe_scan(x, rows=300, fill=fill)
+        assert build.LAUNCHES["probe_scan"] == before + 1
+        assert got.dtype == dtype
+        want = probe.probe_scan_reference(x, rows=300, fill=fill)
+        assert torch.equal(got, want)
+    assert 0 < int((want == 965).sum()) < want.numel()
+
+
+def test_probe_gather_matches_plain(cuda):
+    rng = np.random.default_rng(4)
+    before = build.LAUNCHES["probe_gather"]
+    x = torch.from_numpy(rng.integers(-2**31, 2**31, (8, 128))).to(
+        torch.int32).to(cuda)
+    assert torch.equal(probe.affine(x), probe.affine_reference(x))
+    for H in (8, 512, 8192):
+        tab = torch.from_numpy(
+            rng.integers(-2**31, 2**31, (H, 128))).to(torch.int32).to(cuda)
+        idx = torch.from_numpy(rng.integers(0, H, (3, 128))).to(
+            torch.int32).to(cuda)
+        assert torch.equal(probe.gather_lanes(tab, idx),
+                           probe.gather_lanes_reference(tab, idx))
+        assert torch.equal(probe.gather_loop(tab, idx, 100),
+                           probe.gather_loop_reference(tab, idx, 100))
+    assert build.LAUNCHES["probe_gather"] == before + 7

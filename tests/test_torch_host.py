@@ -191,13 +191,56 @@ def test_png_reader_matches_pil():
 
 
 def test_import_is_jax_free():
+    # Every module of the package, and chip_smoke.py, in a fresh process.
     code = (
-        "import sys, lzw_tpu_torch, lzw_tpu_torch.kernels.encode, "
-        "lzw_tpu_torch.kernels.decode, lzw_tpu_torch.kernels.build, "
-        "lzw_tpu_torch.native.runtime, lzw_tpu_torch.utils.corpus; "
+        "import importlib, pkgutil, sys, lzw_tpu_torch, chip_smoke; "
+        "names = [m.name for m in pkgutil.walk_packages("
+        "lzw_tpu_torch.__path__, 'lzw_tpu_torch.')]; "
+        "[importlib.import_module(n) for n in names]; "
+        "assert 'lzw_tpu_torch.scripts.probe_gpu' in names, names; "
         "bad = [m for m in sys.modules "
         "if m.split('.')[0] in ('jax', 'jaxlib', 'lzw_tpu')]; "
         "assert not bad, bad"
     )
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True,
                    timeout=120)
+
+
+def test_native_source_is_the_ports_own_copy():
+    from lzw_tpu_torch.native import runtime
+
+    assert runtime.SOURCE == (ROOT / "lzw_tpu_torch" / "native"
+                              / "lzw_native.cpp")
+    assert runtime.SOURCE.read_bytes() == (
+        ROOT / "lzw_tpu" / "native" / "lzw_native.cpp").read_bytes()
+
+
+def _code_strings(path):
+    """String constants of a Python file that are not docstrings."""
+    import ast
+
+    tree = ast.parse(path.read_text())
+    docs = {id(node.body[0].value) for node in ast.walk(tree)
+            if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef,
+                                 ast.AsyncFunctionDef))
+            and node.body and isinstance(node.body[0], ast.Expr)
+            and isinstance(node.body[0].value, ast.Constant)}
+    return [node.value for node in ast.walk(tree)
+            if isinstance(node, ast.Constant) and isinstance(node.value, str)
+            and id(node) not in docs]
+
+
+def test_no_path_into_the_jax_package():
+    # The port reads no file of lzw_tpu/: no string of its code names that
+    # directory, and no CUDA source includes from it.
+    import re
+
+    pkg = ROOT / "lzw_tpu_torch"
+    into = re.compile(r"(^|[/\\])lzw_tpu([/\\]|$)")
+    bad = [(str(p.relative_to(ROOT)), s) for p in sorted(pkg.rglob("*.py"))
+           for s in _code_strings(p) if into.search(s)]
+    for p in sorted([*pkg.rglob("*.cu"), *pkg.rglob("*.cuh")]):
+        for line in p.read_text().splitlines():
+            if line.lstrip().startswith("#include") and "lzw_tpu/" in line:
+                bad.append((str(p.relative_to(ROOT)), line))
+    assert not bad, bad
