@@ -15,7 +15,12 @@ Phases, one line each, any failure exits non-zero:
    with its stride-1 pair rows, and both pass-2 walks (stride-2 and
    stride-1) against their plain PyTorch versions on the card, exact
    equality, and both walks' bytes against the blocks, for gif7, gif2, tiff
-   and fixed-12 on 64 blocks x 8 KiB of random and compressible data;
+   and fixed-12 on 64 blocks x 8 KiB of random and compressible data; then
+   the encode-parse and pass-1 kernels on the edge cases of their
+   one-chain-per-warp design (``lzw_tpu_torch.utils.testdata``: blocks of
+   length 0, 1, 2 and B in one launch, partly filled CTAs and more blocks
+   than one round of chains, full tables, resets, KwKwK runs, errors and
+   the words past each block's stop), pass 1 with every row kind, exact;
 4. the slice: ``BlockParallelCodec(LzwSpec.gif(7), device="cuda")`` on
    128 MiB (2048 x 64 KiB blocks) of the tiled image corpus and of the tiled
    text corpus: every payload equal to the native runtime's encoder, and a
@@ -47,6 +52,11 @@ Phases, one line each, any failure exits non-zero:
    of the four probe kernels, every gather OK and the sweep's time
    following T; then each probe kernel against its plain version on the
    same inputs in every variant, exact, and the yardstick library calls.
+
+Each timing of the encode-parse and pass-1 kernels also prints their
+chains in flight (CTAs per SM from the occupancy query x warps per CTA x
+SMs), the rounds of chains the launch takes and the ns per chain step:
+the kernel's time over rounds x steps of the longest block.
 
 It prints a ``{"kernels": [...]}`` line, each kernel with its bound (the
 least time for the bytes it must move at 3.35 TB/s, or for its 32-bit
@@ -245,6 +255,9 @@ def compare_decode(spec, codes, n_codes, block, sched_t, label,
         res[p1_name] = result(max_abs_err(dec, ref), ms, plain_ms,
                               4 * n + stats_bytes + 8 * n + 12 * n_blocks,
                               16 * n)
+        say("chains", f"{label}: {p1_name} " + chain_line(
+            "decode_pass1", n_blocks, int(n_codes.max()), n / n_blocks, ms,
+            codes.device))
     args = (codes, dec[0], dec[4], n_codes, block, spec, sched_t)
     out = walk(*args)
     plain_ms, ref = once_ms(lambda: plain(*args))
@@ -288,6 +301,9 @@ def compare_kernels(spec, mat, lens, block, device, label,
             f"{label}: encode_parse != plain, max_abs_err {err_e}")
     if int(enc[2].abs().sum()):
         raise AssertionError(f"{label}: unexpected encode error flags")
+    say("chains", f"{label}: encode_parse " + chain_line(
+        "encode_parse", len(lens), int(lens.max()), float(lens.mean()),
+        ms_e, device))
     dense, counts = enc[0], enc[1]
     codes, n_codes, sched_t = pass1_inputs(spec, dense, counts, device)
     res, dec, out = compare_decode(spec, codes, n_codes, block, sched_t,
@@ -317,6 +333,23 @@ def compare_kernels(spec, mat, lens, block, device, label,
         + kernel_times(res) + ", kernel == plain exactly, "
         + ("both walks" if stride1 else "pass 2") + " == input")
     return res
+
+
+def chain_line(name: str, n_blocks: int, steps: int, mean: float,
+               ms: float, device) -> str:
+    """The geometry of a one-chain-per-warp kernel's launch over
+    ``n_blocks`` blocks and its ns per chain step: ``ms`` over rounds x
+    ``steps`` of the longest block (``mean`` steps per block)."""
+    from lzw_tpu_torch.kernels import chains
+
+    g = chains.launch_geometry(name, n_blocks, device)
+    ns = ms * 1e6 / max(g.rounds * steps, 1)
+    return (f"{chains.chains_in_flight(name, device)} chains in "
+            f"flight ({chains.ctas_per_sm(name, device)} CTA per SM x "
+            f"{g.warps} warps, {g.shared_bytes} B shared), {g.rounds} "
+            f"rounds of {g.chains} chains over {n_blocks} blocks, {ns:.2f} "
+            f"ns per chain step ({steps} steps in the longest block, "
+            f"{mean:.1f} in the mean)")
 
 
 def kernel_times(res: dict[str, Result]) -> str:
@@ -777,6 +810,7 @@ def main() -> int:
     from lzw_tpu_torch import Endianness, LzwSpec
     from lzw_tpu_torch.kernels import build
     from lzw_tpu_torch.native import runtime
+    from lzw_tpu_torch.utils import testdata
     from lzw_tpu_torch.utils.card import nvidia_smi_line
     from lzw_tpu_torch.utils.corpus import load_tokyo_pixels
 
@@ -812,6 +846,9 @@ def main() -> int:
     for i, (label, spec) in enumerate(specs.items()):
         mat, lens = sample_blocks(spec, 64, 8192, seed=i)
         compare_kernels(spec, mat, lens, 8192, device, label, stride1=True)
+    n_enc, n_pass1 = testdata.check_edge_cases(device)
+    say("kernels", f"edge cases: encode_parse on {n_enc} cases and "
+        f"decode_pass1 on {n_pass1} cases x 3 row kinds == plain exactly")
 
     # 4. The slice at full size.
     assets = ROOT / "test-assets"

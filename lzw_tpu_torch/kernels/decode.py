@@ -30,13 +30,14 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from lzw_tpu_torch.kernels import build
+from lzw_tpu_torch.kernels import build, chains
 from lzw_tpu_torch.kernels import schedule as _sched
 from lzw_tpu_torch.spec import MAX_TABLE_SIZE, LzwSpec
 
 __all__ = [
     "decode_pass1", "decode_pass1_reference", "decode_pass1_fixed",
-    "decode_pass1_variable", "prepare_variable_decode", "unpack12",
+    "decode_pass1_variable", "prepare_variable_decode", "schedule_rows",
+    "unpack12",
     "variable_pass1", "VariablePass1",
     "decode_pass2_stride2", "decode_pass2_stride2_reference",
     "decode_pass2_device", "decode_pass2_device_reference",
@@ -51,7 +52,6 @@ KIND_HOLE = 2
 MAX_BLOCK = 1 << 17  # descriptor payload bound (17 bits)
 # The pair rows pass 1 may write, by the index the kernel takes.
 ROW_KINDS = ("none", "stride1", "stride2")
-THREADS_PER_CTA = 8  # lanes per warp, as the encoder
 PASS2_THREADS_PER_CTA = 256  # one thread per code slot
 
 
@@ -152,10 +152,14 @@ def decode_pass1(codes: torch.Tensor, n_codes: torch.Tensor,
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 5
                    + [ctypes.c_void_p] * 5 + [ctypes.c_int]
-                   + [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p])
+                   + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
+                   + [ctypes.c_void_p])
     with torch.cuda.device(dev):
-        planes = torch.empty((2, N, MAX_TABLE_SIZE), dtype=torch.int32,
-                             device=dev)
+        g = chains.launch_geometry("decode_pass1", N, dev)
+        # The warps take the blocks longest first from a shared counter.
+        order = torch.argsort(n_codes, descending=True, stable=True).to(
+            torch.int32)
+        counter = torch.zeros(1, dtype=torch.int32, device=dev)
         words = torch.empty((N, S), dtype=torch.int32, device=dev)
         pair = (torch.empty((N, S), dtype=torch.int32, device=dev)
                 if row_kind else None)
@@ -164,10 +168,10 @@ def decode_pass1(codes: torch.Tensor, n_codes: torch.Tensor,
         rc = fn(codes.data_ptr(), n_codes.data_ptr(), N, S, block_size,
                 alphabet, first_free,
                 None if sched is None else sched.data_ptr(),
-                planes[0].data_ptr(), planes[1].data_ptr(), words.data_ptr(),
-                None if pair is None else pair.data_ptr(), row_kind,
-                stats[0].data_ptr(), stats[1].data_ptr(), stats[2].data_ptr(),
-                THREADS_PER_CTA, stream)
+                order.data_ptr(), counter.data_ptr(), words.data_ptr(),
+                None if pair is None else pair.data_ptr(),
+                row_kind, stats[0].data_ptr(), stats[1].data_ptr(),
+                stats[2].data_ptr(), g.grid, g.warps, g.shared_bytes, stream)
     build.check_launch("decode_pass1", rc)
     out = (words, stats[0], stats[1], stats[2])
     return out + (pair,) if row_kind else out
@@ -324,11 +328,18 @@ def prepare_variable_decode(payloads_np: np.ndarray, plens_np, spec: LzwSpec):
         np.asarray(payloads_np), np.asarray(plens_np, dtype=np.int64), spec
     )
     S = max(min(S_raw, int(counts.max()) if N else 1), 1)
+    return counts, strict, schedule_rows(spec, S), S
+
+
+def schedule_rows(spec: LzwSpec, S: int) -> np.ndarray:
+    """The schedule rows i32[2, S] of a strict variable stream: per step,
+    the decoder's next index (the encoder's minus one) and the ordinal of
+    the step's epoch start."""
     sched = _sched.emission_schedule(spec, S)
-    sched_arr = np.zeros((2, S), np.int32)
-    sched_arr[0, :] = (sched.nxt_of[:S] - 1).astype(np.int32)
-    sched_arr[1, :] = sched.epoch_start[:S].astype(np.int32)
-    return counts, strict, sched_arr, S
+    rows = np.zeros((2, S), np.int32)
+    rows[0, :] = (sched.nxt_of[:S] - 1).astype(np.int32)
+    rows[1, :] = sched.epoch_start[:S].astype(np.int32)
+    return rows
 
 
 def _no_stage(name: str):

@@ -3,7 +3,8 @@
 Port of ``lzw_tpu/kernels/encode_pallas.py``.  The TPU package has several
 parse kernels (K1 chunked, K2 single-launch, and the legacy K6-K8) that all
 produce the same dense codes; on Hopper one kernel,
-``csrc/encode_parse.cu``, serves every flavor and block size.
+``csrc/encode_parse.cu``, serves every flavor and block size: one block's
+parse per warp, its dictionary in shared memory (:mod:`.chains`).
 
 TPU containments with no counterpart here: the ``SUPER_GROUP_MAX`` batch
 slicing and the two-dispatch encode/pack split (XLA miscompile workarounds),
@@ -18,14 +19,11 @@ import ctypes
 
 import torch
 
-from lzw_tpu_torch.kernels import build
+from lzw_tpu_torch.kernels import build, chains
 from lzw_tpu_torch.spec import MAX_TABLE_SIZE, LzwSpec
 
 __all__ = ["encode_blocks_codes", "encode_blocks_codes_reference",
            "encode_blocks_fixed", "pack12"]
-
-THREADS_PER_CTA = 8  # lanes per warp: the probe loop diverges per lane
-_HASH_SLOTS = 8192  # per-block hash table (matches csrc/encode_parse.cu)
 
 
 def _spec_params(spec: LzwSpec | None) -> tuple[int, int, int]:
@@ -71,22 +69,22 @@ def encode_blocks_codes(blocks: torch.Tensor, lens: torch.Tensor,
     first_free, max_code, reset = _spec_params(spec)
     N, B = blocks.shape
     dev = blocks.device
-    lib = build.load("encode_parse")
-    fn = lib.encode_parse_launch
+    fn = build.load("encode_parse").encode_parse_launch
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 5
-                   + [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_void_p])
+                   + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
+                   + [ctypes.c_void_p])
     with torch.cuda.device(dev):
-        tables = torch.empty((N, _HASH_SLOTS), dtype=torch.int32, device=dev)
+        g = chains.launch_geometry("encode_parse", N, dev)
         dense = torch.zeros((N, B + 1), dtype=torch.int32, device=dev)
         counts = torch.empty(N, dtype=torch.int32, device=dev)
         err = torch.empty(N, dtype=torch.int32, device=dev)
         err_code = torch.empty(N, dtype=torch.int32, device=dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(blocks.data_ptr(), lens.data_ptr(), N, B, first_free,
-                max_code, reset, tables.data_ptr(), dense.data_ptr(),
-                counts.data_ptr(), err.data_ptr(), err_code.data_ptr(),
-                THREADS_PER_CTA, stream)
+                max_code, reset, dense.data_ptr(), counts.data_ptr(),
+                err.data_ptr(), err_code.data_ptr(), g.grid, g.warps,
+                g.shared_bytes, stream)
     build.check_launch("encode_parse", rc)
     return dense, counts, err, err_code
 

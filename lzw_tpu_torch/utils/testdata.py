@@ -1,4 +1,5 @@
-"""Synthesised foreign-stream test vectors, built from the port's own encoder.
+"""Synthesised test vectors: foreign streams built from the port's own
+encoder, and the edge cases of the one-chain-per-warp kernels.
 
 Port of ``lzw_tpu/utils/testdata.py``, whose scalar oracle lives in the JAX
 package: here the codes come from the encode-parse kernel (its plain
@@ -8,14 +9,22 @@ so the same stream can be made on a machine without JAX.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import numpy as np
 import torch
 
+from lzw_tpu_torch.kernels import build
+from lzw_tpu_torch.kernels import decode as _dec
+from lzw_tpu_torch.kernels import encode as _enc
 from lzw_tpu_torch.kernels import schedule as _sched
+from lzw_tpu_torch.kernels.decode import MAX_BLOCK, schedule_rows
 from lzw_tpu_torch.kernels.encode import encode_blocks_codes
-from lzw_tpu_torch.spec import LzwSpec, UnexpectedCodeError
+from lzw_tpu_torch.spec import LzwSpec, MAX_TABLE_SIZE, UnexpectedCodeError
 
-__all__ = ["spliced_nonstrict_stream"]
+__all__ = ["spliced_nonstrict_stream", "EncodeCase", "Pass1Case",
+           "encode_edge_cases", "pass1_edge_cases", "CHAIN_COUNTS",
+           "check_edge_cases"]
 
 
 def _pack_codes(codes: np.ndarray, widths: np.ndarray, little: bool) -> bytes:
@@ -77,3 +86,248 @@ def spliced_nonstrict_stream(data: bytes, spec: LzwSpec, piece: int = 2000,
     widths.append(clear_w)
     return _pack_codes(np.asarray(codes), np.asarray(widths),
                        spec.endianness.value == "little")
+
+
+# Block counts that fill a CTA partly, exactly and past it, and that need
+# more than one round of chains (8 x 132 = 1056 encode chains, 7 x 132 = 924
+# pass-1 chains on an H100).
+CHAIN_COUNTS = (1, 6, 7, 8, 9, 925, 1057)
+
+
+class EncodeCase(NamedTuple):
+    """Inputs of ``encode_blocks_codes``: u8[N, B] blocks, i32[N] lengths;
+    ``spec`` None is fixed-12."""
+
+    label: str
+    spec: LzwSpec | None
+    blocks: np.ndarray
+    lens: np.ndarray
+
+
+class Pass1Case(NamedTuple):
+    """Inputs of ``decode_pass1``: i32[N, S] codes, i32[N] code counts,
+    the block size and, for a variable spec, the i32[2, S] schedule rows."""
+
+    label: str
+    spec: LzwSpec | None
+    codes: np.ndarray
+    n_codes: np.ndarray
+    block_size: int
+    sched: np.ndarray | None
+
+
+def _mixed_blocks(rng, hi: int, n: int, size: int) -> np.ndarray:
+    """Even rows random in [0, hi), odd rows repeats of a short phrase."""
+    mat = rng.integers(0, hi, size=(n, size)).astype(np.uint8)
+    phrase = rng.integers(0, hi, size=37).astype(np.uint8)
+    mat[1::2] = np.resize(phrase, (len(mat[1::2]), size))
+    return mat
+
+
+def encode_edge_cases(seed: int = 0, full: bool = True) -> list[EncodeCase]:
+    """The encode-parse kernel's edge cases: blocks of length 0, 1, 2 and B
+    in one launch (the warps of a CTA finish at different times); every
+    block count of :data:`CHAIN_COUNTS`; random 64 KiB blocks (full tables
+    and long probe runs, gif7 resets, the fixed-12 freeze at 4096); gif2 at
+    64 KiB (many resets); runs of one byte; out-of-range bytes, one of them
+    deep in a block.  ``full=False`` shrinks 64 KiB to 2 KiB and keeps the
+    counts below 10, for the plain version on a CPU."""
+    rng = np.random.default_rng(seed)
+    gif7, gif2 = LzwSpec.gif(7), LzwSpec.gif(2)
+    big = 1 << 16 if full else 1 << 11
+    cases = []
+    B = 4096
+    lens = np.array([0, 1, 2, B, B, 0, 2, 1, B], np.int32)
+    cases.append(EncodeCase("lengths 0/1/2/B", gif7,
+                            _mixed_blocks(rng, 128, len(lens), B), lens))
+    for n in CHAIN_COUNTS if full else [c for c in CHAIN_COUNTS if c < 10]:
+        for spec, hi in ((gif7, 128), (None, 256)):
+            mat = _mixed_blocks(rng, hi, n, 512)
+            cases.append(EncodeCase(
+                f"N={n} {'fixed' if spec is None else 'gif7'}", spec, mat,
+                rng.integers(400, 513, size=n).astype(np.int32)))
+    # The plain version's time follows the block width, not the rows, so
+    # the long rows of one flavor share a case.
+    runs = np.array([[5], [0], [127]], np.uint8) * np.ones(big, np.uint8)
+    for label, spec, hi, run_rows in (("gif7", gif7, 128, runs),
+                                      ("fixed-12", None, 256, runs[:1] + 195),
+                                      ("gif2", gif2, 4, runs[:0])):
+        rand = rng.integers(0, hi, size=(2, big)).astype(np.uint8)
+        lens = np.full(2 + len(run_rows), big, np.int32)
+        lens[1] = big - 5
+        cases.append(EncodeCase(
+            f"random {label} {big} B" + (", runs of one byte"
+                                         if len(run_rows) else ""),
+            spec, np.concatenate([rand, run_rows]), lens))
+    bad = np.zeros((5, B), np.uint8)
+    lens = np.zeros(5, np.int32)
+    for i, row in enumerate(([0, 1, 8, 3], [200], [200, 1, 2, 250, 1],
+                             list(rng.integers(0, 4, size=B)))):
+        bad[i, : len(row)] = row
+        lens[i] = len(row)
+    bad[4] = rng.integers(0, 4, size=B)
+    bad[4, 3000] = 9  # deep in the block, after a reset
+    lens[4] = B
+    cases.append(EncodeCase("out-of-range bytes gif2", gif2, bad, lens))
+    return cases
+
+
+def _valid_codes(rng, spec: LzwSpec | None, S: int, kwkwk: float):
+    """A strict stream of S codes, each valid for the decoder: an epoch's
+    first code a root, later ones a root, a defined entry or (with
+    probability ``kwkwk``) the next index.  Returns (codes, sched)."""
+    if spec is None:
+        alphabet = first_free = 256
+        sched = None
+    else:
+        alphabet, first_free = spec.alphabet_size, spec.first_free_code
+        sched = schedule_rows(spec, S)
+    codes = np.zeros(S, np.int32)
+    nxt = first_free
+    for t in range(S):
+        if sched is not None:
+            nxt = int(sched[0, t])
+        first = t == (0 if sched is None else int(sched[1, t]))
+        if first:
+            c = int(rng.integers(0, alphabet))
+        elif rng.random() < kwkwk:
+            c = nxt
+        else:
+            # A root or a code in [first_free, nxt): never a control code.
+            c = int(rng.integers(0, alphabet + nxt - first_free))
+            c = c if c < alphabet else c - alphabet + first_free
+        codes[t] = c
+        if sched is None and not first and nxt < MAX_TABLE_SIZE:
+            nxt += 1
+    return codes, sched
+
+
+def _stream_block(rng, spec, n: int, S: int, kwkwk: float = 0.1):
+    rows, sched = [], None
+    for _ in range(n):
+        codes, sched = _valid_codes(rng, spec, S, kwkwk)
+        rows.append(codes)
+    # The schedule rows depend on S alone, so every row shares them.
+    return np.stack(rows), sched
+
+
+def pass1_edge_cases(seed: int = 0, full: bool = True) -> list[Pass1Case]:
+    """Pass 1's edge cases, on random strict streams: code counts 0, 1, 2
+    and S in one launch; every block count of :data:`CHAIN_COUNTS`; long
+    blocks that fill the table (gif7 and gif2 resets, the fixed-12 freeze at
+    4096); KwKwK-heavy streams; a code beyond the next index mid-block and
+    an output overflow mid-block, each followed by more codes; counts below
+    S with codes after them; the error inputs of the decode tests.  Words
+    past the stop are not constant (KwKwK codes still carry the frozen
+    length and offset), so every case holds codes there.  ``full=False``
+    shrinks the long blocks and keeps the counts below 10, for the plain
+    version on a CPU."""
+    rng = np.random.default_rng(seed)
+    gif7, gif2, fixed = LzwSpec.gif(7), LzwSpec.gif(2), None
+    long = 12000 if full else 1500
+    cases = []
+    codes, sched = _stream_block(rng, gif7, 9, 3000)
+    n = np.array([0, 1, 2, 3000, 3000, 0, 2, 1, 1500], np.int32)
+    cases.append(Pass1Case("counts 0/1/2/S gif7", gif7, codes, n, MAX_BLOCK,
+                           sched))
+    for count in CHAIN_COUNTS if full else [c for c in CHAIN_COUNTS if c < 10]:
+        for spec in (gif7, fixed):
+            codes, sched = _stream_block(rng, spec, count, 300)
+            n = rng.integers(250, 301, size=count).astype(np.int32)
+            cases.append(Pass1Case(
+                f"N={count} {'fixed' if spec is None else 'gif7'}", spec,
+                codes, n, MAX_BLOCK, sched))
+    for label, spec, S in (("gif7", gif7, long), ("gif2", gif2, long),
+                           ("fixed-12", fixed, long // 2)):
+        codes, sched = _stream_block(rng, spec, 2, S)
+        cases.append(Pass1Case(f"full tables {label} S={S}", spec, codes,
+                               np.array([S, S - 7], np.int32), MAX_BLOCK,
+                               sched))
+        # Each KwKwK word is one byte longer than the last: 400 codes stay
+        # inside MAX_BLOCK.
+        codes, sched = _stream_block(rng, spec, 2, 400, kwkwk=0.9)
+        cases.append(Pass1Case(f"KwKwK-heavy {label} S=400", spec, codes,
+                               np.full(2, 400, np.int32), MAX_BLOCK, sched))
+    for label, spec in (("gif7", gif7), ("fixed-12", fixed)):
+        S = 2000
+        codes, sched = _stream_block(rng, spec, 3, S, kwkwk=0.3)
+        nxt = (sched[0] if sched is not None
+               else np.minimum(256 + np.maximum(np.arange(S) - 1, 0), 4096))
+        codes[0, 300] = min(int(nxt[300]) + 1 + int(rng.integers(0, 50)),
+                            MAX_TABLE_SIZE - 1)
+        # Row 0 stops at the corrupt code, row 1 overflows the block
+        # mid-stream, row 2 stops at a count below S.
+        cases.append(Pass1Case(
+            f"corrupt code, overflow, count < S {label}", spec, codes,
+            np.array([S, S, S // 2 + 3], np.int32), 5000, sched))
+    # The port's decode tests' error inputs: a code far beyond the next
+    # index (fixed-12 65, 3000; gif2 1, 7, 2) and 128 bytes into a 64-byte
+    # block, whose codes the encoder gives.
+    overflow = np.frombuffer(bytes(range(100)) + bytes([3] * 28), np.uint8)
+    for label, spec, corrupt, block in (("fixed-12", fixed, [65, 3000], 64),
+                                        ("gif2", gif2, [1, 7, 2], 128),
+                                        ("gif7", gif7, None, 64)):
+        rows = [] if corrupt is None else [np.array(corrupt, np.int32)]
+        if spec is not gif2:
+            dense, count, _, _ = _enc.encode_blocks_codes(
+                torch.from_numpy(overflow[None].copy()),
+                torch.tensor([len(overflow)], dtype=torch.int32), spec)
+            rows.append(dense[0, : int(count[0])].numpy())
+        S = max(map(len, rows))
+        codes = np.zeros((len(rows), S), np.int32)
+        for i, r in enumerate(rows):
+            codes[i, : len(r)] = r
+        cases.append(Pass1Case(
+            f"error inputs {label}", spec, codes,
+            np.array([len(r) for r in rows], np.int32), block,
+            None if spec is None else schedule_rows(spec, S)))
+    return cases
+
+
+def _same(name: str, label: str, got, want) -> None:
+    if len(got) != len(want):
+        raise AssertionError(f"{name} {label}: {len(got)} outputs, "
+                             f"expected {len(want)}")
+    for i, (g, w) in enumerate(zip(got, want)):
+        if not torch.equal(g, w):
+            raise AssertionError(f"{name} {label}: output {i} differs from "
+                                 "the plain version")
+
+
+def _counted(name: str, fn):
+    before = build.LAUNCHES[name]
+    out = fn()
+    if build.LAUNCHES[name] != before + 1:
+        raise AssertionError(f"{name}: the wrapper did not count one launch")
+    return out
+
+
+def check_edge_cases(device) -> tuple[int, int]:
+    """Every case of :func:`encode_edge_cases` and :func:`pass1_edge_cases`
+    through the wrappers on ``device`` against the plain versions, exact,
+    pass 1 with every row kind; each wrapper call must count one launch.
+    Raises AssertionError naming the case; returns the numbers of encode
+    and pass-1 cases."""
+    enc = encode_edge_cases()
+    for c in enc:
+        blocks = torch.from_numpy(c.blocks).to(device)
+        lens = torch.from_numpy(c.lens).to(device)
+        got = _counted("encode_parse", lambda: _enc.encode_blocks_codes(
+            blocks, lens, c.spec))
+        _same("encode_parse", c.label, got,
+              _enc.encode_blocks_codes_reference(blocks, lens, c.spec))
+    p1 = pass1_edge_cases()
+    for c in p1:
+        args = (torch.from_numpy(c.codes).to(device),
+                torch.from_numpy(c.n_codes).to(device), c.spec, c.block_size,
+                None if c.sched is None else torch.from_numpy(c.sched).to(
+                    device))
+        # The words and stats do not depend on the rows asked for.
+        want = {rows: _dec.decode_pass1_reference(*args, rows=rows)
+                for rows in ("stride1", "stride2")}
+        want["none"] = want["stride2"][:4]
+        for rows in _dec.ROW_KINDS:
+            got = _counted("decode_pass1",
+                           lambda: _dec.decode_pass1(*args, rows=rows))
+            _same("decode_pass1", f"{c.label} rows={rows}", got, want[rows])
+    return len(enc), len(p1)

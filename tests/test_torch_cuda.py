@@ -20,6 +20,7 @@ from lzw_tpu_torch.kernels import ablate, build, probe
 from lzw_tpu_torch.kernels import decode as tdec
 from lzw_tpu_torch.kernels import encode as tenc
 from lzw_tpu_torch.kernels import schedule as tsched
+from lzw_tpu_torch.utils import testdata
 from lzw_tpu_torch.utils.corpus import load_corpus
 
 pytestmark = pytest.mark.cuda
@@ -128,6 +129,17 @@ def test_stride1_kernels_match_plain(name, cuda):
     for i in range(len(lens)):
         assert int(totals[i]) == lens[i]
         assert (out[i, : lens[i]] == mat[i, : lens[i]]).all()
+
+
+def test_chain_edge_cases_match_plain(cuda):
+    # The one-chain-per-warp kernels on the edges their design adds: warps
+    # of one CTA that finish at different times, partly filled CTAs, more
+    # blocks than one round of chains, full tables, resets, KwKwK runs,
+    # errors, and the words past each block's stop that the warp writes
+    # together; pass 1 with every row kind.
+    n_enc, n_pass1 = testdata.check_edge_cases(cuda)
+    assert (n_enc, n_pass1) == (len(testdata.encode_edge_cases()),
+                                len(testdata.pass1_edge_cases()))
 
 
 def test_container_round_trip_on_card(cuda):
