@@ -8,13 +8,15 @@ Run from the repository root, with no arguments::
 Phases, one line each, any failure exits non-zero:
 
 1. device: the CUDA card's name and ``nvidia-smi`` name and power limit;
-2. build: compiles the eight CUDA kernels from
+2. build: compiles the nine CUDA kernels from
    ``lzw_tpu_torch/kernels/csrc`` (nvcc, sm_90a) and the native runtime
    from ``lzw_tpu_torch/native``, all at once;
 3. kernel vs plain: the encode-parse kernel, pass 1 with its stride-2 and
-   with its stride-1 pair rows, and both pass-2 walks (stride-2 and
-   stride-1) against their plain PyTorch versions on the card, exact
-   equality, and both walks' bytes against the blocks, for gif7, gif2, tiff
+   with its stride-1 pair rows, the word-offset scan ``word_ends`` and both
+   pass-2 walks (stride-2 and stride-1), padded and flat, against their
+   plain PyTorch versions on the card, exact equality, the flat bytes
+   against the padded rows' masked bytes and both walks' bytes against the
+   blocks, for gif7, gif2, tiff
    and fixed-12 on 64 blocks x 8 KiB of random and compressible data; then
    the encode-parse and pass-1 kernels on the edge cases of their
    one-chain-per-warp design (``lzw_tpu_torch.utils.testdata``: blocks of
@@ -28,24 +30,26 @@ Phases, one line each, any failure exits non-zero:
    (``pass2="host"``: the native ``apply_words``), the all-device one
    (``pass2="device"``, which must not call the native runtime) and the
    default ``"auto"`` (which must take the device route here); the launch
-   counts of each route, stage and end to end MiB/s; then the three kernels
-   against their plain versions at the main path's shapes;
+   counts of each route, stage and end to end MiB/s; then the encode,
+   pass-1, scan and walk kernels against their plain versions at the main
+   path's shapes;
 5. a 32 MiB fixed-12 round trip at 4 KiB blocks with the same checks, and
-   the three kernels against their plain versions at its shape;
+   the same kernels against their plain versions at its shape;
 6. a non-strict gif7 container (128 x 64 KiB blocks, an early CLEAR every
    2000 bytes) through ``pass2="device"`` and ``"auto"`` (which must call
    the native ``decode_blocks``): equal to the input and to the native
    runtime's ``decode_blocks``; then the decode kernels against their plain
    versions at the sub-streams' shape;
 7. the stride-1 route at the main path's width: the all-device decode with
-   ``stride2=False`` (pass 1 with stride-1 rows, then the stride-1 walk)
-   beside the default stride-2 one, in turns, on the payloads of the
+   ``stride2=False`` (pass 1 with stride-1 rows, then the scan and the
+   stride-1 flat walk) beside the default stride-2 one, in turns, on the
+   payloads of the
    128 MiB gif7 image container (2048 x 64 KiB) and of the 32 MiB fixed-12
    one: bytes equal to the input, each run counted to launch its own walk
    and no native call, end to end MiB/s of both; then the stride-1 walk
    against its plain version at both shapes (on the kernel's own stride-1
    rows at 64 KiB) and the stride-1 rows against theirs at the fixed-12
-   shape, and pass 1's and the walks' kernel times side by side;
+   shape, and pass 1's, the scan's and the flat walks' times side by side;
 8. the probe entry points: ``python -m lzw_tpu_torch.scripts.ablate_kernel
    all``, ``ablate2``, ``probe_i16`` (and its sweep at T = 256) and
    ``probe_gpu all`` at the JAX scripts' shapes, counted to launch each
@@ -56,7 +60,10 @@ Phases, one line each, any failure exits non-zero:
 Each timing of the encode-parse and pass-1 kernels also prints their
 chains in flight (CTAs per SM from the occupancy query x warps per CTA x
 SMs), the rounds of chains the launch takes and the ns per chain step:
-the kernel's time over rounds x steps of the longest block.
+the kernel's time over rounds x steps of the longest block.  Each timing
+of a walk (``[walk]`` lines) prints the walk's launch alone, the scan, the
+torch call the scan replaced, the flat and padded wrappers, the longest
+word and the walk's time over the dependent loads along it.
 
 It prints a ``{"kernels": [...]}`` line, each kernel with its bound (the
 least time for the bytes it must move at 3.35 TB/s, or for its 32-bit
@@ -94,6 +101,11 @@ KERNEL_SOURCES = {
                      ":92 (K6), :105 (K7), :679 (K8)"),
     "decode_pass1": ("lzw_tpu_torch/kernels/csrc/decode_pass1.cu",
                      "lzw_tpu/kernels/decode_pallas.py:128"),
+    # No TPU kernel: the torch glue over the word lengths that the JAX
+    # package sums in `_epoch_totals`.
+    "word_ends": ("lzw_tpu_torch/kernels/csrc/word_ends.cu",
+                  "lzw_tpu/kernels/decode_pallas.py:698 (no pallas_call: "
+                  "the glue over _epoch_totals' lengths)"),
     "decode_pass2": ("lzw_tpu_torch/kernels/csrc/decode_pass2.cu",
                      "lzw_tpu/kernels/decode_pallas.py:1289"),
     "decode_pass2_stride1": (
@@ -219,16 +231,23 @@ def pass1_inputs(spec, dense, counts, device):
 def compare_decode(spec, codes, n_codes, block, sched_t, label,
                    stride2: bool = True, pass1=None):
     """Pass 1 with its stride-2 pair rows (``stride2``) or its stride-1
-    ones, unless ``pass1`` gives the kernel's own outputs with them, and the
-    walk of those rows against their plain versions on the same CUDA
-    inputs.
+    ones, unless ``pass1`` gives the kernel's own outputs with them, then
+    the scan kernel ``word_ends`` and the walk of those rows, padded and
+    flat, against their plain versions on the same CUDA inputs; the flat
+    bytes also against the padded rows' masked bytes.
 
-    Returns ({kernel: Result}, pass-1 outputs, the walk's bytes); pass 1
-    with stride-1 rows is named ``decode_pass1 stride-1``.  Bounds: pass 1
-    reads the codes and counts and writes a word and a pair row per code
-    and three stats per block; the walk reads the codes, words and rows and
-    writes the decoded bytes; about 16 integer operations per code, and 4
-    per byte written."""
+    Returns ({kernel: Result}, pass-1 outputs, the padded walk's bytes);
+    pass 1 with stride-1 rows is named ``decode_pass1 stride-1``.  Bounds:
+    pass 1 reads the codes and counts and writes a word and a pair row per
+    code and three stats per block; the scan reads each live word and
+    count once and writes an end per live word (8 B a code, 4 a block);
+    the walk reads the codes, ends and rows and writes the decoded bytes;
+    about 16 integer operations per code, and 4 per byte written.  The
+    walk's time is its launch alone, on the scan's ends; the line also
+    gives the scan, the flat and padded wrappers, the longest word and the
+    walk's ns per dependent load along it."""
+    import torch
+
     from lzw_tpu_torch.kernels import decode as tdec
     from lzw_tpu_torch.utils.card import cuda_ms
 
@@ -237,13 +256,16 @@ def compare_decode(spec, codes, n_codes, block, sched_t, label,
     stats_bytes = 4 * n_blocks + (0 if sched_t is None else 8 * width)
     if stride2:
         rows, p1_name, name = "stride2", "decode_pass1", "decode_pass2"
-        walk, plain = (tdec.decode_pass2_stride2,
-                       tdec.decode_pass2_stride2_reference)
+        walk, flat_walk, plain = (tdec.decode_pass2_stride2,
+                                  tdec.decode_pass2_stride2_flat,
+                                  tdec.decode_pass2_stride2_reference)
     else:
         rows, p1_name = "stride1", "decode_pass1 stride-1"
         name = "decode_pass2_stride1"
-        walk, plain = (tdec.decode_pass2_device,
-                       tdec.decode_pass2_device_reference)
+        walk, flat_walk, plain = (tdec.decode_pass2_device,
+                                  tdec.decode_pass2_device_flat,
+                                  tdec.decode_pass2_device_reference)
+    vspec = spec if spec.variable else None
     res = {}
     dec = pass1
     if dec is None:
@@ -258,14 +280,64 @@ def compare_decode(spec, codes, n_codes, block, sched_t, label,
         say("chains", f"{label}: {p1_name} " + chain_line(
             "decode_pass1", n_blocks, int(n_codes.max()), n / n_blocks, ms,
             codes.device))
-    args = (codes, dec[0], dec[4], n_codes, block, spec, sched_t)
+    words, totals = dec[0], dec[1]
+
+    # The scan, on live slots (the kernel writes no other), beside the torch
+    # call that it replaced.
+    ends = tdec.word_ends(words, n_codes, block)
+    plain_ms, ref = once_ms(lambda: tdec._word_ends(words, n_codes, block))
+    t = torch.arange(width, device=codes.device)[None, :]
+    live = t < n_codes.long()[:, None]
+    lens = torch.where(live & ((words >> 29) != tdec.KIND_HOLE),
+                       (words >> 17) & 0xFFF, 0)
+    res["word_ends"] = result(
+        max_abs_err((ends[live],), (ref[live],)),
+        cuda_ms(lambda: tdec.word_ends(words, n_codes, block)), plain_ms,
+        8 * n + 4 * n_blocks, 4 * n,
+        cuda_ms(lambda: torch.cumsum(torch.where(live, lens, 0), 1)))
+    longest = int(lens.max()) if n else 0
+
+    args = (codes, words, dec[4], n_codes, block, vspec, sched_t)
     out = walk(*args)
     plain_ms, ref = once_ms(lambda: plain(*args))
-    out_bytes = int(dec[1].sum())
-    res[name] = result(max_abs_err((out,), (ref,)),
-                       cuda_ms(lambda: walk(*args)), plain_ms,
-                       12 * n + stats_bytes + out_bytes,
-                       16 * n + 4 * out_bytes)
+    flat = flat_walk(*args[:4], totals, *args[4:])
+    flat_plain_ms, flat_ref = once_ms(lambda: plain(*args, totals))
+    keep = (torch.arange(block, device=codes.device)[None, :]
+            < totals[:, None])
+    masked = out[keep]
+    out_bytes = int(totals.sum())
+    plan = tdec._walk_plan(words, n_codes, totals, block)
+    dst = torch.empty(plan.size, dtype=torch.uint8, device=codes.device)
+    walk_ms = cuda_ms(lambda: tdec._launch_walk(
+        name, codes, dec[4], n_codes, sched_t, totals, plan, block, vspec,
+        dst))
+    res[name] = result(
+        max(max_abs_err((out, flat), (ref, flat_ref)),
+            max_abs_err((flat,), (masked,))),
+        walk_ms, flat_plain_ms, 12 * n + stats_bytes + out_bytes,
+        16 * n + 4 * out_bytes)
+    loads = longest // 2 if stride2 else longest - 1
+    # A warp walks 32 consecutive live slots at a time and waits for the
+    # longest of their chains: the walk's dependent loads, summed over the
+    # warps' 32-slot groups, spread over the warps an SM holds.
+    per_slot = lens // 2 if stride2 else (lens - 1).clamp(min=0)
+    steps = int(torch.nn.functional.pad(per_slot, (0, -width % 32))
+                .view(n_blocks, -1, 32).amax(2).sum())
+    props = torch.cuda.get_device_properties(codes.device)
+    warps = props.multi_processor_count * getattr(
+        props, "max_threads_per_multi_processor", 2048) // 32
+    flat_ms = cuda_ms(lambda: flat_walk(*args[:4], totals, *args[4:]))
+    padded_ms = cuda_ms(lambda: walk(*args))
+    say("walk", f"{label}: {name} alone {walk_ms:.4f} ms, scan word_ends "
+        f"{res['word_ends'].ms:.4f} ms (torch cumsum call "
+        f"{res['word_ends'].library_ms:.4f} ms), flat wrapper {flat_ms:.4f} "
+        f"ms, padded wrapper {padded_ms:.4f} ms (plain padded {plain_ms:.1f}, "
+        f"flat {flat_plain_ms:.1f} ms); longest word {longest} B, "
+        f"{loads} dependent loads, "
+        f"{walk_ms * 1e6 / max(loads, 1):.1f} ns per load if it sets the "
+        f"time; {steps} warp steps (each 32-slot group's longest chain), "
+        f"{walk_ms * 1e6 * warps / max(steps, 1):.1f} ns per step at "
+        f"{warps} warps in flight; flat == plain == padded masked")
     bad = {k: v.err for k, v in res.items() if v.err}
     if bad:
         raise AssertionError(f"{label}: kernel != plain, max_abs_err {bad}")
@@ -407,6 +479,42 @@ def stage_line(label: str, route: str, stages: dict, mib: float) -> None:
                     for k, v in stages.items()))
 
 
+def d2h_line(label: str, data: bytes, device) -> None:
+    """What ``dec_d2h_out`` spends on the container's bytes, on a copy of
+    them on the card: the pinned buffer's allocation, the copy into it and
+    the copy into ``bytes``, by the host's clock, twice (the second
+    allocation may come from PyTorch's pinned-memory cache)."""
+    import numpy as np
+    import torch
+
+    from lzw_tpu_torch.kernels.decode import to_host
+
+    flat = torch.from_numpy(np.frombuffer(data, np.uint8).copy()).to(device)
+    parts = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        host = torch.empty(flat.shape, dtype=torch.uint8, pin_memory=True)
+        t1 = time.perf_counter()
+        host.copy_(flat, non_blocking=True)
+        torch.cuda.current_stream().synchronize()
+        t2 = time.perf_counter()
+        got = host.numpy().tobytes()
+        t3 = time.perf_counter()
+        if got != data:
+            raise AssertionError(f"{label}: pinned copy differs")
+        del host
+        parts.append((t1 - t0, t2 - t1, t3 - t2))
+    whole, _ = once_ms(lambda: to_host(flat).tobytes())
+    say("d2h", f"{label}: {len(data) / MiB:.0f} MiB to bytes, ms (first, "
+        "second): pinned alloc "
+        + ", ".join(f"{p[0] * 1e3:.2f}" for p in parts) + "; copy "
+        + ", ".join(f"{p[1] * 1e3:.2f} ({len(data) / p[1] / 1e9:.1f} GB/s)"
+                    for p in parts) + "; tobytes "
+        + ", ".join(f"{p[2] * 1e3:.2f}" for p in parts)
+        + f"; to_host + tobytes {whole:.2f}")
+
+
 def run_container(spec, data: bytes, block: int, label: str,
                   device="cuda"):
     """Encode, then decode by both routes, through BlockParallelCodec with
@@ -430,6 +538,7 @@ def run_container(spec, data: bytes, block: int, label: str,
                                    pass2=route)
         if codec.decode(container) != data:
             raise AssertionError(f"{label}: staged {route} round trip differs")
+    d2h_line(label, data, device)
     # End to end, each run with its own launch counts.
     t_enc, container2, l_enc = timed_run(
         lambda: BlockParallelCodec(spec, block_size=block,
@@ -437,11 +546,11 @@ def run_container(spec, data: bytes, block: int, label: str,
         {"encode_parse": 1}, f"{label} encode")
     launches = [l_enc]
     t_dec = {}
-    device_route = {"decode_pass1": 1, "decode_pass2": 1, "apply_words": 0,
-                    "decode_blocks": 0}
+    device_route = {"decode_pass1": 1, "word_ends": 1, "decode_pass2": 1,
+                    "apply_words": 0, "decode_blocks": 0}
     # "auto" on the card takes the device route for these strict blocks.
     for route, expect in (
-            ("host", {"decode_pass1": 1, "decode_pass2": 0,
+            ("host", {"decode_pass1": 1, "word_ends": 0, "decode_pass2": 0,
                       "apply_words": 1}),
             ("device", device_route), ("auto", device_route)):
         codec = BlockParallelCodec(spec, block_size=block, device=device,
@@ -510,8 +619,8 @@ def run_nonstrict(spec, data: bytes, block: int, label: str, device="cuda"):
                                pass2="device")
     t_dev, out, launches = timed_run(
         lambda: codec.decode(container),
-        {"decode_pass1": 1, "decode_pass2": 1, "apply_words": 0,
-         "decode_blocks": 0}, label)
+        {"decode_pass1": 1, "word_ends": 1, "decode_pass2": 1,
+         "apply_words": 0, "decode_blocks": 0}, label)
     # "auto" on the card leaves non-strict blocks to the native runtime.
     codec = BlockParallelCodec(spec, block_size=block, device=device)
     t_auto, out_auto, _ = timed_run(
@@ -585,8 +694,7 @@ def run_stride1(spec, data: bytes, block: int, label: str, device="cuda"):
     plens = np.array([len(p) for p in payloads], np.int32)
     for i, p in enumerate(payloads):
         mat[i, : len(p)] = np.frombuffer(p, np.uint8)
-    want = torch.from_numpy(
-        np.frombuffer(data, np.uint8).reshape(-1, block).copy()).to(device)
+    want = torch.from_numpy(np.frombuffer(data, np.uint8).copy()).to(device)
     little = spec.endianness is Endianness.LITTLE
     mat_t = torch.from_numpy(mat).to(device)
     plens_t = torch.from_numpy(plens).to(device)
@@ -594,9 +702,9 @@ def run_stride1(spec, data: bytes, block: int, label: str, device="cuda"):
     def decode(stride2: bool):
         if spec.variable:
             return tdec.decode_variable_all_device(
-                mat, plens, spec, block, device, stride2=stride2)
+                mat, plens, spec, block, device, stride2=stride2, flat=True)
         return tdec.decode_fixed_all_device(mat_t, plens_t, block, little,
-                                            stride2=stride2)
+                                            stride2=stride2, flat=True)
 
     secs = {True: [], False: []}
     launches = []
@@ -605,8 +713,9 @@ def run_stride1(spec, data: bytes, block: int, label: str, device="cuda"):
         other = "decode_pass2_stride1" if stride2 else "decode_pass2"
         dt, out, lc = timed_run(
             lambda s2=stride2: decode(s2),
-            {"decode_pass1": 1, walk: 1, other: 0, "apply_words": 0,
-             "decode_blocks": 0}, f"{label} stride2={stride2}")
+            {"decode_pass1": 1, "word_ends": 1, walk: 1, other: 0,
+             "apply_words": 0, "decode_blocks": 0},
+            f"{label} stride2={stride2}")
         if int(out[2].abs().sum()) or (spec.variable and not out[4].all()):
             raise AssertionError(f"{label} stride2={stride2}: pass-1 error "
                                  "flags or non-strict blocks")
@@ -647,12 +756,17 @@ def run_stride1(spec, data: bytes, block: int, label: str, device="cuda"):
     pair2 = tdec.decode_pass1(codes, n_codes, spec, block, sched_t,
                               rows="stride2")[4]
     words, pair1 = dec[0], dec[4]
-    times["walk stride-2"] = cuda_ms(lambda: tdec.decode_pass2_stride2(
-        codes, words, pair2, n_codes, block, spec, sched_t))
-    times["walk stride-1"] = cuda_ms(lambda: tdec.decode_pass2_device(
-        codes, words, pair1, n_codes, block, spec, sched_t))
-    times["prefix-sum glue"] = cuda_ms(
-        lambda: tdec._word_ends(words, n_codes))
+    vspec, totals = (spec if spec.variable else None), dec[1]
+    times["flat walk stride-2"] = cuda_ms(
+        lambda: tdec.decode_pass2_stride2_flat(
+            codes, words, pair2, n_codes, totals, block, vspec, sched_t))
+    times["flat walk stride-1"] = cuda_ms(
+        lambda: tdec.decode_pass2_device_flat(
+            codes, words, pair1, n_codes, totals, block, vspec, sched_t))
+    times["scan word_ends"] = cuda_ms(
+        lambda: tdec.word_ends(words, n_codes, block))
+    times["plain scan _word_ends"] = cuda_ms(
+        lambda: tdec._word_ends(words, n_codes, block))
     say("kernels", f"{label}: N={codes.shape[0]} S={codes.shape[1]}; "
         + kernel_times(res) + ", kernel == plain exactly; kernel ms by "
         "CUDA events: pass 1 rows "
@@ -692,10 +806,17 @@ def run_probes(device):
         raise AssertionError(f"probe_gpu: a probe is WRONG: {p4}")
     for dt, ms in p3[512].items():
         # At half the steps a sweep that really runs takes about half the
-        # time; one the compiler removed would not.
-        if ms < 1.3 * p3[256][dt]:
+        # time; one the compiler removed would not.  The int16 sweep at
+        # T=256 has read 0.12-0.17 ms on one card, so a ratio below the
+        # limit is timed again, three more times a side, best kept.
+        t256 = p3[256][dt]
+        if ms < 1.3 * t256:
+            again = {t: min(probe_i16.run(getattr(torch, dt), t)
+                            for _ in range(3)) for t in (512, 256)}
+            ms, t256 = min(ms, again[512]), min(t256, again[256])
+        if ms < 1.3 * t256:
             raise AssertionError(
-                f"probe_scan {dt}: {ms:.4f} ms at T=512, {p3[256][dt]:.4f} "
+                f"probe_scan {dt}: {ms:.4f} ms at T=512, {t256:.4f} "
                 "ms at T=256: the time does not follow the steps")
 
     res, errs = {}, {}

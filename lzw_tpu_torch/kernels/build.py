@@ -34,7 +34,7 @@ __all__ = ["KERNELS", "LAUNCHES", "BuildError", "find_nvcc", "load",
 _HERE = pathlib.Path(__file__).resolve().parent
 CSRC = _HERE / "csrc"
 BUILD_DIR = _HERE / "build"
-KERNELS = ("encode_parse", "decode_pass1", "decode_pass2",
+KERNELS = ("encode_parse", "decode_pass1", "word_ends", "decode_pass2",
            "decode_pass2_stride1",
            # The probes and ablations of the JAX package's scripts.
            "ablate_parse", "ablate_ring", "probe_scan", "probe_gather")

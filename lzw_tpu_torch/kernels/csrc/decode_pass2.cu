@@ -16,22 +16,29 @@
 // backwards in lockstep with compare-scans over row windows, which forced
 // epoch units, sorted pooling, a reversed output, a per-lane shift and a
 // flip.  Here each word's place is known before the walk: word t fills
-// bytes [ends[t-1], ends[t]) of its block, where `ends` is the inclusive
-// prefix sum of pass 1's descriptor lengths (holes count 0), computed by
-// the caller.  So there is one thread per code slot: it walks its own
-// word's chain through the pair rows and writes two bytes per load at
-// their final positions; a literal writes one byte.  Slots write disjoint
-// ranges, so nothing is shared and nothing is reordered afterwards.
+// bytes [ends[t-1], ends[t]) of its block, where `ends` comes from the scan
+// kernel word_ends.cu.  So there is one thread per live code slot at a
+// time (a CTA per block, its threads striding over the block's slots,
+// pass2_slot.cuh): it walks its own word's chain through the pair rows and
+// writes two bytes per load at their final positions; a literal writes one
+// byte.  Slots write disjoint
+// ranges, so nothing is shared and nothing is reordered afterwards.  In
+// flat mode the block's bytes land at its offset in the container's order
+// (the exclusive prefix sum of pass 1's totals), so the caller copies one
+// contiguous buffer to the host and zeroes nothing.
 //
-// What bounds it on the H100: the dependent 4-byte loads along each chain
-// (latency, mostly L2 hits within the block's pair row), ceil(len / 2) per
-// word.  Short words leave their warps early; a long chain (a long run in
-// the input) keeps its whole warp resident, so a block whose word lengths
-// vary widely leaves lanes idle.  Bytes moved are small: codes, ends and
-// pair rows read once (12 B per slot) plus the output written once.
+// What bounds it on the H100: the latency of the dependent 4-byte loads
+// along the chains, floor(len / 2) per word, summed over the words a warp
+// walks one after another (each warp waits for its longest word per pass
+// over the block); not the longest word alone, and not the stores (staging
+// the bytes in shared memory and storing them coalesced was no faster).
+// A CTA per block keeps the block's pair rows in its SM's L1.  Bytes moved
+// are small: codes, ends and pair rows read once (12 B per slot) plus the
+// output written once.
 //
 // Corrupt inputs cannot write out of bounds: positions stay inside the
-// word's range (clipped to block_size) and rows outside [0, S) end the walk.
+// word's range, clipped to the block's, and rows outside [0, S) end the
+// walk.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -40,53 +47,48 @@
 
 namespace {
 
-__global__ void decode_pass2_kernel(
-    const int32_t* __restrict__ codes, const int32_t* __restrict__ ends,
-    const int32_t* __restrict__ pair2, const int32_t* __restrict__ n_codes,
-    const int32_t* __restrict__ sched, int n_blocks, int S, int block_size,
-    int alphabet, int first_free, uint8_t* __restrict__ out) {
-  pass2::Slot s;
-  if (!pass2::setup(static_cast<int64_t>(blockIdx.x) * blockDim.x +
-                        threadIdx.x,
-                    codes, ends, pair2, n_codes, sched, n_blocks, S,
-                    block_size, alphabet, first_free, out, &s)) {
-    return;
-  }
-  int node = s.code;
-  int pos = s.end - 1;
-  while (pos >= s.start) {
-    if (node < alphabet) {
-      s.out[pos] = static_cast<uint8_t>(node);
-      break;
+__global__ void __launch_bounds__(pass2::kThreads)
+    decode_pass2_kernel(pass2::Args a) {
+  const pass2::Block b = pass2::block_of_cta(a);
+  for (int t = threadIdx.x; t < b.live; t += pass2::kThreads) {
+    pass2::Slot s;
+    if (!pass2::setup(a, b, t, &s)) continue;
+    int node = s.code;
+    int pos = s.end - 1;
+    while (pos >= s.start) {
+      if (node < a.alphabet) {
+        b.out[pos] = static_cast<uint8_t>(node);
+        break;
+      }
+      const int r = s.base + node;
+      if (r < 0 || r >= a.S) break;
+      const uint32_t d = static_cast<uint32_t>(__ldg(s.rows + r));
+      b.out[pos] = static_cast<uint8_t>(d & 0xFFu);
+      if (--pos < s.start) break;
+      b.out[pos] = static_cast<uint8_t>((d >> 8) & 0xFFu);
+      --pos;
+      if (d >> 28) break;
+      node = static_cast<int>((d >> 16) & 0xFFFu);
     }
-    const int r = s.base + node;
-    if (r < 0 || r >= S) break;
-    const uint32_t d = static_cast<uint32_t>(s.rows[r]);
-    s.out[pos] = static_cast<uint8_t>(d & 0xFFu);
-    if (--pos < s.start) break;
-    s.out[pos] = static_cast<uint8_t>((d >> 8) & 0xFFu);
-    --pos;
-    if (d >> 28) break;
-    node = static_cast<int>((d >> 16) & 0xFFFu);
   }
 }
 
 }  // namespace
 
-// Launch on `stream`; returns cudaGetLastError() (0 on success).  `out`
-// [n_blocks, block_size] must be zeroed by the caller; `sched` is null for
-// the fixed flavor, else the [2, S] schedule rows of a variable stream.
+// Launch on `stream`, one CTA per block; returns cudaGetLastError() (0 on
+// success).  `totals` and `base` both null (padded: `out` [n_blocks,
+// block_size], zeroed by the caller) or both set (flat: `out` holds
+// sum(totals) bytes); `sched` null for the fixed flavor, else the [2, S]
+// schedule rows of a variable stream.
 extern "C" int decode_pass2_launch(
     const int32_t* codes, const int32_t* ends, const int32_t* pair2,
-    const int32_t* n_codes, const int32_t* sched, int n_blocks, int S,
-    int block_size, int alphabet, int first_free, uint8_t* out,
-    int threads_per_cta, void* stream) {
-  const int64_t slots = static_cast<int64_t>(n_blocks) * S;
-  if (slots <= 0) return 0;
-  const int64_t grid = (slots + threads_per_cta - 1) / threads_per_cta;
-  decode_pass2_kernel<<<static_cast<unsigned>(grid), threads_per_cta, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
-      codes, ends, pair2, n_codes, sched, n_blocks, S, block_size, alphabet,
-      first_free, out);
+    const int32_t* n_codes, const int32_t* sched, const int32_t* totals,
+    const int64_t* base, int n_blocks, int S, int block_size, int alphabet,
+    int first_free, uint8_t* out, void* stream) {
+  if (n_blocks <= 0 || S <= 0) return 0;
+  const pass2::Args a{codes, ends, pair2, n_codes, sched, totals, base,
+                      n_blocks, S, block_size, alphabet, first_free, out};
+  decode_pass2_kernel<<<n_blocks, pass2::kThreads, 0,
+                        static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
 }

@@ -17,8 +17,10 @@ walks drop the TPU's backwards lockstep walk with its epoch units, pooling
 and sorting, round segments, epoch-carrying code bits, reversed output,
 per-lane shift and flip (decode_pallas.py:884-1056, 1169-1171, 1260,
 1461-1566, 1619-1693): each word's output offset is the prefix sum of
-pass 1's descriptor lengths, so every code slot resolves its own word in
-place.
+pass 1's descriptor lengths (:func:`word_ends`, the kernel ``word_ends``),
+so every code slot resolves its own word in place.  The ``_flat`` walks
+put each block's bytes at the prefix sum of pass 1's totals, back to back
+as the container returns them, so the host fetches one buffer.
 """
 
 from __future__ import annotations
@@ -39,8 +41,9 @@ __all__ = [
     "decode_pass1_variable", "prepare_variable_decode", "schedule_rows",
     "unpack12",
     "variable_pass1", "VariablePass1",
-    "decode_pass2_stride2", "decode_pass2_stride2_reference",
-    "decode_pass2_device", "decode_pass2_device_reference",
+    "word_ends", "decode_pass2_stride2", "decode_pass2_stride2_flat",
+    "decode_pass2_stride2_reference", "decode_pass2_device",
+    "decode_pass2_device_flat", "decode_pass2_device_reference", "to_host",
     "decode_variable_all_device", "decode_fixed_all_device",
     "KIND_COPY", "KIND_LIT", "KIND_HOLE", "MAX_BLOCK", "ROW_KINDS",
 ]
@@ -52,7 +55,6 @@ KIND_HOLE = 2
 MAX_BLOCK = 1 << 17  # descriptor payload bound (17 bits)
 # The pair rows pass 1 may write, by the index the kernel takes.
 ROW_KINDS = ("none", "stride1", "stride2")
-PASS2_THREADS_PER_CTA = 256  # one thread per code slot
 
 
 def unpack12(payloads: torch.Tensor, plens: torch.Tensor, little: bool):
@@ -404,22 +406,103 @@ def decode_pass1_variable(payloads_np: np.ndarray, plens_np, spec: LzwSpec,
     return p.words, p.counts, p.totals, p.err, p.err_code, p.strict
 
 
-def _word_ends(words: torch.Tensor, n_codes: torch.Tensor) -> torch.Tensor:
-    """Inclusive prefix sum of the word lengths, i32[N, S]: word t of a
-    block fills bytes [ends[t-1], ends[t]).  Holes and slots past n_codes
-    count 0 (``_epoch_totals``, decode_pallas.py:698-709)."""
+def _word_ends(words: torch.Tensor, n_codes: torch.Tensor,
+               block_size: int) -> torch.Tensor:
+    """Plain version of :func:`word_ends`: the inclusive prefix sum of the
+    word lengths, clipped to ``block_size``, over every slot (holes and
+    slots past n_codes count 0; ``_epoch_totals``,
+    decode_pallas.py:698-709)."""
     S = words.shape[1]
     live = (torch.arange(S, device=words.device)[None, :]
             < n_codes.to(torch.int64)[:, None]) & ((words >> 29) != KIND_HOLE)
     lens = torch.where(live, (words >> 17) & 0xFFF, 0)
-    return torch.cumsum(lens, dim=1, dtype=torch.int32)
+    return torch.cumsum(lens, dim=1, dtype=torch.int32).clamp_(max=block_size)
+
+
+def word_ends(words: torch.Tensor, n_codes: torch.Tensor,
+              block_size: int) -> torch.Tensor:
+    """Where each word of pass 1 goes: i32[N, S] inclusive ends, word t of
+    block n filling bytes [ends[n, t-1], ends[n, t]) of the block.
+
+    The sum of the descriptor lengths of slots 0..t, holes counting 0,
+    clipped to ``block_size``.  Only slots below ``n_codes`` are defined:
+    the kernel ``word_ends`` reads and writes no other slot.  CPU tensors
+    run :func:`_word_ends`; CUDA tensors run the kernel, and anything else
+    raises.
+    """
+    dev = words.device
+    build.require_tensor(words, "words", torch.int32, 2, dev)
+    build.require_tensor(n_codes, "n_codes", torch.int32, 1, dev)
+    if n_codes.shape[0] != words.shape[0]:
+        raise ValueError("n_codes and words disagree on the block count")
+    if not 0 < block_size <= MAX_BLOCK:
+        raise ValueError(f"block_size {block_size} outside 1..{MAX_BLOCK}")
+    if dev.type == "cpu":
+        return _word_ends(words, n_codes, block_size)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    N, S = words.shape
+    fn = build.load("word_ends").word_ends_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 + [
+        ctypes.c_void_p] * 2
+    with torch.cuda.device(dev):
+        ends = torch.empty((N, S), dtype=torch.int32, device=dev)
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = fn(words.data_ptr(), n_codes.data_ptr(), N, S, block_size,
+                ends.data_ptr(), stream)
+    build.check_launch("word_ends", rc)
+    return ends
+
+
+class _WalkPlan(NamedTuple):
+    """A pass-2 walk's launch inputs on the card (:func:`_walk_plan`)."""
+
+    ends: torch.Tensor         # i32[N, S] word ends (:func:`word_ends`)
+    base: torch.Tensor | None  # i64[N] output offsets (flat mode)
+    size: int                  # output bytes
+
+
+def _walk_plan(words, n_codes, totals, block_size) -> _WalkPlan:
+    """The word ends and, with ``totals``, each block's output offset, the
+    exclusive prefix sum of its totals, and the output size (flat mode
+    reads it back from the card: one synchronisation)."""
+    ends = word_ends(words, n_codes, block_size)
+    if totals is None:
+        return _WalkPlan(ends, None, words.shape[0] * block_size)
+    t = totals.to(torch.int64).clamp(min=0)
+    base_end = torch.cumsum(t, 0)
+    size = int(base_end[-1]) if t.numel() else 0
+    return _WalkPlan(ends, base_end - t, size)
+
+
+def _launch_walk(kernel: str, codes, pair, n_codes, sched, totals,
+                 plan: _WalkPlan, block_size: int, spec,
+                 out: torch.Tensor) -> None:
+    """Launch walk ``kernel``, one CTA per block, into ``out`` (flat when
+    ``totals`` is given, else padded [N, block_size] and zeroed)."""
+    alphabet, first_free = _table_params(spec)
+    N, S = codes.shape
+    fn = getattr(build.load(kernel), f"{kernel}_launch")
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
+                   + [ctypes.c_void_p] * 2)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    stream = torch.cuda.current_stream(codes.device).cuda_stream
+    rc = fn(codes.data_ptr(), plan.ends.data_ptr(), pair.data_ptr(),
+            n_codes.data_ptr(), ptr(sched), ptr(totals), ptr(plan.base), N,
+            S, block_size, alphabet, first_free, out.data_ptr(), stream)
+    build.check_launch(kernel, rc)
 
 
 def _pass2(kernel: str, reference, codes, words, pair, n_codes, block_size,
-           spec, sched) -> torch.Tensor:
-    """Shared wrapper of the two pass-2 kernels, whose launch functions
-    take the same arguments: checks, then the plain version for CPU
-    tensors or the kernel ``kernel`` for CUDA tensors."""
+           spec, sched, totals=None) -> torch.Tensor:
+    """Shared wrapper of the two pass-2 kernels, padded or, with
+    ``totals``, flat: checks, then the plain version for CPU tensors or
+    :func:`word_ends` and the kernel ``kernel`` for CUDA tensors."""
     variable = spec is not None and spec.variable
     if variable != (sched is not None):
         raise ValueError("sched is required for, and only for, variable specs")
@@ -429,27 +512,25 @@ def _pass2(kernel: str, reference, codes, words, pair, n_codes, block_size,
         if t.shape != codes.shape:
             raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
                              f"{tuple(codes.shape)}")
+    if totals is not None:
+        build.require_tensor(totals, "totals", torch.int32, 1, codes.device)
+        if totals.shape[0] != codes.shape[0]:
+            raise ValueError("totals and codes disagree on the block count")
     if codes.device.type == "cpu":
-        return reference(codes, words, pair, n_codes, block_size, spec, sched)
+        return reference(codes, words, pair, n_codes, block_size, spec, sched,
+                         totals)
     if codes.device.type != "cuda":
         raise ValueError(f"unsupported device {codes.device}")
-    alphabet, first_free = _table_params(spec)
-    N, S = codes.shape
     dev = codes.device
-    fn = getattr(build.load(kernel), f"{kernel}_launch")
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
-                   + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p])
     with torch.cuda.device(dev):
-        ends = _word_ends(words, n_codes)
-        out = torch.zeros((N, block_size), dtype=torch.uint8, device=dev)
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(codes.data_ptr(), ends.data_ptr(), pair.data_ptr(),
-                n_codes.data_ptr(),
-                None if sched is None else sched.data_ptr(),
-                N, S, block_size, alphabet, first_free, out.data_ptr(),
-                PASS2_THREADS_PER_CTA, stream)
-    build.check_launch(kernel, rc)
+        plan = _walk_plan(words, n_codes, totals, block_size)
+        if totals is None:
+            out = torch.zeros((codes.shape[0], block_size), dtype=torch.uint8,
+                              device=dev)
+        else:
+            out = torch.empty(plan.size, dtype=torch.uint8, device=dev)
+        _launch_walk(kernel, codes, pair, n_codes, sched, totals, plan,
+                     block_size, spec, out)
     return out
 
 
@@ -458,7 +539,7 @@ def decode_pass2_stride2(codes: torch.Tensor, words: torch.Tensor,
                          block_size: int, spec: LzwSpec | None = None,
                          sched: torch.Tensor | None = None) -> torch.Tensor:
     """All-device pass 2, two bytes per pair row: pass-1 outputs ->
-    decoded bytes.
+    decoded bytes, one zero-padded row per block.
 
     Args:
       codes:   i32[N, S] dense wire codes (pass 1's input).
@@ -474,10 +555,32 @@ def decode_pass2_stride2(codes: torch.Tensor, words: torch.Tensor,
     The JAX package's ``decode_pass2_stride2`` takes ``totals`` where this
     takes ``words``: the offsets of the words replace its reversed walk.
     CPU tensors run :func:`decode_pass2_stride2_reference`; CUDA tensors
-    run the kernel, and anything else raises.
+    run the kernels ``word_ends`` and ``decode_pass2``, and anything else
+    raises.  :func:`decode_pass2_stride2_flat` writes the blocks' bytes back
+    to back instead.
     """
     return _pass2("decode_pass2", decode_pass2_stride2_reference, codes,
                   words, pair2, n_codes, block_size, spec, sched)
+
+
+def decode_pass2_stride2_flat(codes: torch.Tensor, words: torch.Tensor,
+                              pair2: torch.Tensor, n_codes: torch.Tensor,
+                              totals: torch.Tensor, block_size: int,
+                              spec: LzwSpec | None = None,
+                              sched: torch.Tensor | None = None
+                              ) -> torch.Tensor:
+    """:func:`decode_pass2_stride2` with the blocks' bytes back to back, in
+    block order: u8[sum(totals)], block n's bytes from the exclusive prefix
+    sum of ``totals`` (i32[N], pass 1's) on.
+
+    Every write of block n stays inside [0, min(totals[n], block_size)) of
+    the block, so a corrupt block cannot write into a neighbour's bytes.
+    Nothing is zeroed: a block whose words do not tile [0, totals[n]) (one
+    with a pass-1 error) leaves bytes undefined on CUDA tensors (0 on the
+    CPU).
+    """
+    return _pass2("decode_pass2", decode_pass2_stride2_reference, codes,
+                  words, pair2, n_codes, block_size, spec, sched, totals)
 
 
 def decode_pass2_device(codes: torch.Tensor, words: torch.Tensor,
@@ -497,23 +600,48 @@ def decode_pass2_device(codes: torch.Tensor, words: torch.Tensor,
     where this reads it from ``sched`` row 1 and takes plain wire codes;
     its pair rows are in its kernel layout (G, S, sub, 128), these
     block-major [N, S].  CPU tensors run
-    :func:`decode_pass2_device_reference`; CUDA tensors run the kernel, and
-    anything else raises.
+    :func:`decode_pass2_device_reference`; CUDA tensors run the kernels,
+    and anything else raises.
     """
     return _pass2("decode_pass2_stride1", decode_pass2_device_reference,
                   codes, words, pair, n_codes, block_size, spec, sched)
 
 
-def _walk_start(codes, words, n_codes, block_size, spec, sched):
+def decode_pass2_device_flat(codes: torch.Tensor, words: torch.Tensor,
+                             pair: torch.Tensor, n_codes: torch.Tensor,
+                             totals: torch.Tensor, block_size: int,
+                             spec: LzwSpec | None = None,
+                             sched: torch.Tensor | None = None
+                             ) -> torch.Tensor:
+    """:func:`decode_pass2_device` with the blocks' bytes back to back, as
+    :func:`decode_pass2_stride2_flat` writes them."""
+    return _pass2("decode_pass2_stride1", decode_pass2_device_reference,
+                  codes, words, pair, n_codes, block_size, spec, sched,
+                  totals)
+
+
+def _walk_start(codes, words, n_codes, block_size, spec, sched, totals):
     """Shared start of the plain pass-2 walks, vectorised over code slots:
     writes every one-byte word (a root, or an epoch's first code) into the
-    flat output and returns it with the state of the other slots' walks
-    (block, node, last position, first position, pair-row base)."""
+    output, u8[N * block_size] or, with ``totals``, u8[sum(totals)], and
+    returns it with the state of the other slots' walks (block, the
+    block's output offset, node, last position, first position, pair-row
+    base)."""
     alphabet, first_free = _table_params(spec)
     N, S = codes.shape
     dev = codes.device
     B = block_size
-    ends = _word_ends(words, n_codes).to(torch.int64).clamp(max=B)
+    if totals is None:
+        base = torch.arange(N, device=dev) * B
+        lim = torch.full((N,), B, dtype=torch.int64, device=dev)
+        size = N * B
+    else:
+        lim = totals.to(torch.int64).clamp(min=0)
+        base = torch.cumsum(lim, 0) - lim
+        size = int(lim.sum())
+        lim = lim.clamp(max=B)
+    ends = torch.minimum(_word_ends(words, n_codes, B).to(torch.int64),
+                         lim[:, None])
     starts = torch.cat(
         [torch.zeros((N, 1), dtype=torch.int64, device=dev), ends[:, :-1]],
         dim=1)
@@ -521,24 +649,26 @@ def _walk_start(codes, words, n_codes, block_size, spec, sched):
     est = (sched[1].to(torch.int64) if sched is not None
            else torch.zeros(S, dtype=torch.int64, device=dev))
     codes = codes.to(torch.int64)
-    flat = torch.zeros(N * B, dtype=torch.uint8, device=dev)
+    flat = torch.zeros(size, dtype=torch.uint8, device=dev)
     valid = ends > starts
     lit = valid & ((t == est)[None, :] | (codes < alphabet))
     n_i, t_i = lit.nonzero(as_tuple=True)
     c = codes[n_i, t_i]
-    flat[n_i * B + starts[n_i, t_i]] = torch.where(
+    flat[base[n_i] + starts[n_i, t_i]] = torch.where(
         c < alphabet, c, 0).to(torch.uint8)
     n_i, t_i = (valid & ~lit).nonzero(as_tuple=True)
-    return flat, (n_i, codes[n_i, t_i], ends[n_i, t_i] - 1, starts[n_i, t_i],
-                  est[t_i] + 1 - first_free)
+    return flat, (n_i, base[n_i], codes[n_i, t_i], ends[n_i, t_i] - 1,
+                  starts[n_i, t_i], est[t_i] + 1 - first_free)
 
 
 def decode_pass2_stride2_reference(codes: torch.Tensor, words: torch.Tensor,
                                    pair2: torch.Tensor, n_codes: torch.Tensor,
                                    block_size: int,
                                    spec: LzwSpec | None = None,
-                                   sched: torch.Tensor | None = None):
-    """Plain PyTorch version of :func:`decode_pass2_stride2`.
+                                   sched: torch.Tensor | None = None,
+                                   totals: torch.Tensor | None = None):
+    """Plain PyTorch version of :func:`decode_pass2_stride2`, and with
+    ``totals`` of :func:`decode_pass2_stride2_flat`.
 
     Vectorised over code slots, one loop iteration per chain step: each
     slot writes its word's last bytes first, two per pair row, as the
@@ -546,37 +676,37 @@ def decode_pass2_stride2_reference(codes: torch.Tensor, words: torch.Tensor,
     """
     alphabet, _ = _table_params(spec)
     N, S = codes.shape
-    B = block_size
     pair = pair2.to(torch.int64).reshape(-1)
-    flat, (n_i, node, pos, lo, base) = _walk_start(codes, words, n_codes, B,
-                                                   spec, sched)
+    flat, (n_i, o_i, node, pos, lo, base) = _walk_start(
+        codes, words, n_codes, block_size, spec, sched, totals)
     while n_i.numel():
         root = node < alphabet
-        flat[n_i[root] * B + pos[root]] = node[root].to(torch.uint8)
+        flat[o_i[root] + pos[root]] = node[root].to(torch.uint8)
         row = base + node
         keep = ~root & (row >= 0) & (row < S)
-        n_i, node, pos, lo, base, row = (
-            a[keep] for a in (n_i, node, pos, lo, base, row))
+        n_i, o_i, node, pos, lo, base, row = (
+            a[keep] for a in (n_i, o_i, node, pos, lo, base, row))
         d = pair[n_i * S + row]
-        flat[n_i * B + pos] = (d & 0xFF).to(torch.uint8)
+        flat[o_i + pos] = (d & 0xFF).to(torch.uint8)
         pos = pos - 1
         two = pos >= lo
-        flat[n_i[two] * B + pos[two]] = ((d[two] >> 8) & 0xFF).to(
-            torch.uint8)
+        flat[o_i[two] + pos[two]] = ((d[two] >> 8) & 0xFF).to(torch.uint8)
         pos = pos - 1
         keep = two & ((d >> 28) == 0) & (pos >= lo)
         node = (d >> 16) & 0xFFF
-        n_i, node, pos, lo, base = (
-            a[keep] for a in (n_i, node, pos, lo, base))
-    return flat.reshape(N, B)
+        n_i, o_i, node, pos, lo, base = (
+            a[keep] for a in (n_i, o_i, node, pos, lo, base))
+    return flat if totals is not None else flat.reshape(N, block_size)
 
 
 def decode_pass2_device_reference(codes: torch.Tensor, words: torch.Tensor,
                                   pair: torch.Tensor, n_codes: torch.Tensor,
                                   block_size: int,
                                   spec: LzwSpec | None = None,
-                                  sched: torch.Tensor | None = None):
-    """Plain PyTorch version of :func:`decode_pass2_device`.
+                                  sched: torch.Tensor | None = None,
+                                  totals: torch.Tensor | None = None):
+    """Plain PyTorch version of :func:`decode_pass2_device`, and with
+    ``totals`` of :func:`decode_pass2_device_flat`.
 
     Vectorised over code slots, one loop iteration per chain step: each
     slot writes its word's last byte first, one per pair row, as the
@@ -584,31 +714,41 @@ def decode_pass2_device_reference(codes: torch.Tensor, words: torch.Tensor,
     """
     alphabet, _ = _table_params(spec)
     N, S = codes.shape
-    B = block_size
     pair = pair.to(torch.int64).reshape(-1)
-    flat, (n_i, node, pos, lo, base) = _walk_start(codes, words, n_codes, B,
-                                                   spec, sched)
+    flat, (n_i, o_i, node, pos, lo, base) = _walk_start(
+        codes, words, n_codes, block_size, spec, sched, totals)
     while n_i.numel():
         root = node < alphabet
-        flat[n_i[root] * B + pos[root]] = node[root].to(torch.uint8)
+        flat[o_i[root] + pos[root]] = node[root].to(torch.uint8)
         row = base + node
         keep = ~root & (row >= 0) & (row < S)
-        n_i, node, pos, lo, base, row = (
-            a[keep] for a in (n_i, node, pos, lo, base, row))
+        n_i, o_i, node, pos, lo, base, row = (
+            a[keep] for a in (n_i, o_i, node, pos, lo, base, row))
         d = pair[n_i * S + row]
-        flat[n_i * B + pos] = (d & 0xFF).to(torch.uint8)
+        flat[o_i + pos] = (d & 0xFF).to(torch.uint8)
         pos = pos - 1
         node = (d >> 8) & 0xFFF
         keep = pos >= lo
-        n_i, node, pos, lo, base = (
-            a[keep] for a in (n_i, node, pos, lo, base))
-    return flat.reshape(N, B)
+        n_i, o_i, node, pos, lo, base = (
+            a[keep] for a in (n_i, o_i, node, pos, lo, base))
+    return flat if totals is not None else flat.reshape(N, block_size)
+
+
+def to_host(flat: torch.Tensor) -> np.ndarray:
+    """Decoded bytes on the host: a CUDA tensor in one copy into pinned
+    memory (one synchronisation of its stream); a CPU tensor as it is."""
+    if flat.device.type != "cuda":
+        return flat.numpy()
+    host = torch.empty(flat.shape, dtype=flat.dtype, pin_memory=True)
+    host.copy_(flat, non_blocking=True)
+    torch.cuda.current_stream(flat.device).synchronize()
+    return host.numpy()
 
 
 def decode_variable_all_device(payloads_np: np.ndarray, plens_np,
                                spec: LzwSpec, block_size: int,
                                device="cpu", stage=None,
-                               stride2: bool = True):
+                               stride2: bool = True, flat: bool = False):
     """Whole strict variable-flavor decode on ``device``
     (``decode_variable_all_device``): :func:`variable_pass1` with pair
     rows, then pass 2 (stage ``dec_pass2``).
@@ -623,34 +763,49 @@ def decode_variable_all_device(payloads_np: np.ndarray, plens_np,
     per-epoch ``stride2=False`` route alike.
 
     Returns (blocks u8[N, block_size], totals, errs, err_codes, strict
-    bool[N]); rows whose ``strict`` is False need a general decoder.
+    bool[N]); rows whose ``strict`` is False need a general decoder.  With
+    ``flat`` the blocks are u8[sum(totals)], back to back in block order
+    (the ``_flat`` walks), as the container returns them.
     """
     p = variable_pass1(payloads_np, plens_np, spec, block_size, device,
                        rows="stride2" if stride2 else "stride1", stage=stage)
-    walk = decode_pass2_stride2 if stride2 else decode_pass2_device
     with (stage or _no_stage)("dec_pass2"):
-        out = walk(p.dense, p.words, p.pair, p.counts_t, block_size, spec,
-                   p.sched)
+        if flat:
+            walk = (decode_pass2_stride2_flat if stride2
+                    else decode_pass2_device_flat)
+            out = walk(p.dense, p.words, p.pair, p.counts_t, p.totals,
+                       block_size, spec, p.sched)
+        else:
+            walk = decode_pass2_stride2 if stride2 else decode_pass2_device
+            out = walk(p.dense, p.words, p.pair, p.counts_t, block_size,
+                       spec, p.sched)
     return out, p.totals, p.err, p.err_code, p.strict
 
 
 def decode_fixed_all_device(payloads: torch.Tensor, plens: torch.Tensor,
                             block_size: int, little: bool = True,
-                            stage=None, stride2: bool = True):
+                            stage=None, stride2: bool = True,
+                            flat: bool = False):
     """Whole fixed-12 decode on the payloads' device: pass 1 with pair
     rows, then pass 2 (the JAX package's ``decode_pass1_fixed_tpu`` +
     ``decode_pass2_stride2``, or with ``stride2=False`` its stride-1 rows
     + ``decode_pass2_device``); ``stage`` as for :func:`variable_pass1`
     (``dec_pass1``, ``dec_pass2``).
 
-    Returns (blocks u8[N, block_size], totals, errs, err_codes).
+    Returns (blocks u8[N, block_size], totals, errs, err_codes); with
+    ``flat`` the blocks are u8[sum(totals)], back to back in block order.
     """
     stage = stage or _no_stage
     with stage("dec_pass1"):
         words, n_codes, totals, err, err_code, codes, pair = (
             decode_pass1_fixed(payloads, plens, block_size, little,
                                rows="stride2" if stride2 else "stride1"))
-    walk = decode_pass2_stride2 if stride2 else decode_pass2_device
     with stage("dec_pass2"):
-        out = walk(codes, words, pair, n_codes, block_size)
+        if flat:
+            walk = (decode_pass2_stride2_flat if stride2
+                    else decode_pass2_device_flat)
+            out = walk(codes, words, pair, n_codes, totals, block_size)
+        else:
+            walk = decode_pass2_stride2 if stride2 else decode_pass2_device
+            out = walk(codes, words, pair, n_codes, block_size)
     return out, totals, err, err_code

@@ -24,7 +24,9 @@ import numpy as np
 import torch
 
 from lzw_tpu_torch.kernels import schedule as _sched
-from lzw_tpu_torch.kernels.decode import decode_pass1, decode_pass2_stride2
+from lzw_tpu_torch.kernels.decode import (
+    decode_pass1, decode_pass2_stride2_flat, to_host,
+)
 from lzw_tpu_torch.spec import (
     LzwSpec, MAX_WIDTH, MissingClearCodeError, TruncatedStreamError,
     UnexpectedCodeError,
@@ -297,15 +299,11 @@ def decode_variable_nonstrict_device(payloads, plens, spec: LzwSpec,
         raise UnexpectedCodeError(int(err_codes[i]))
     te = totals.cpu().numpy().astype(np.int64)
     with stage("dec_pass2"):
-        out = decode_pass2_stride2(dense_t, words, pair, cnt_t,
-                                   max(int(te.max()), 1), spec, sched_t)
-        # Row-major masked select: the sub-streams' bytes back to back, in
-        # (owner, epoch) order.
-        width = out.shape[1]
-        flat = out[torch.arange(width, device=out.device)[None, :]
-                   < totals[:, None]]
+        # The sub-streams' bytes back to back, in (owner, epoch) order.
+        flat = decode_pass2_stride2_flat(dense_t, words, pair, cnt_t, totals,
+                                         block_size, spec, sched_t)
     with stage("dec_d2h_out"):
-        flat = flat.cpu().numpy()
+        flat = to_host(flat)
     ends = np.cumsum(np.bincount(owner, weights=te, minlength=N)).astype(
         np.int64)
     starts = np.concatenate([[0], ends[:-1]])

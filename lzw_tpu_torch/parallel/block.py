@@ -10,7 +10,8 @@ of the payload bytes.  Decode: host count recovery -> H2D -> device unpack
 -> pass-1 kernel, then pass 2 by the ``pass2`` route:
 
 * host: D2H of the descriptors -> the native runtime's ``apply_words``;
-* device: the pass-2 kernel -> D2H of the decoded bytes.  Non-strict
+* device: the scan and pass-2 kernels, which write the blocks' bytes back
+  to back -> one D2H of them into pinned memory.  Non-strict
   (foreign early-CLEAR) streams are split at their CLEARs on the host and
   decode on the device too (:mod:`lzw_tpu_torch.kernels.nonstrict`).
 
@@ -39,7 +40,7 @@ import torch
 from lzw_tpu_torch.kernels import schedule as _sched
 from lzw_tpu_torch.kernels.decode import (
     MAX_BLOCK, decode_fixed_all_device, decode_pass1_fixed,
-    decode_variable_all_device, variable_pass1,
+    decode_variable_all_device, to_host, variable_pass1,
 )
 from lzw_tpu_torch.kernels.encode import encode_blocks_codes, pack12
 from lzw_tpu_torch.kernels.nonstrict import decode_variable_nonstrict_device
@@ -203,12 +204,27 @@ class BlockParallelCodec:
 
     def _verify_sample(self, data: bytes, payloads: list[bytes]) -> None:
         """Decode-check the largest payload of the batch against its source
-        on the host (native runtime); raises :class:`VerificationError`."""
+        on the host: the native runtime, or where it cannot build, the
+        kernels' plain versions on the CPU (blocks of at most
+        ``MAX_BLOCK`` bytes; larger ones raise the build error).  Raises
+        :class:`VerificationError` on a mismatch."""
         i = max(range(len(payloads)), key=lambda k: len(payloads[k]))
         bs = self.block_size
         expect = data[i * bs : (i + 1) * bs]
         try:
-            got = get_runtime().decode(payloads[i], self.spec)
+            rt = get_runtime()
+        except (OSError, subprocess.CalledProcessError):
+            if bs > MAX_BLOCK:
+                raise
+            rt = None
+        try:
+            if rt is not None:
+                got = rt.decode(payloads[i], self.spec)
+            else:
+                plain = BlockParallelCodec(self.spec, bs, device="cpu",
+                                           pass2="device", verify=False)
+                got = plain.decode(framing.pack_frame(
+                    self.spec, bs, len(expect), [payloads[i]]))
         except LzwError as exc:
             raise VerificationError(i, f"decode failed: {exc}") from exc
         if got != expect:
@@ -235,11 +251,11 @@ class BlockParallelCodec:
         if self.block_size <= MAX_BLOCK:
             if self.spec.variable:
                 # None: a non-strict (foreign early-CLEAR) stream.
-                out = self._decode_variable(payloads)
+                out = self._decode_variable(payloads, header.orig_size)
                 if out is None and self._native() is None:
                     out = self._decode_variable_nonstrict(payloads)
             else:
-                out = self._decode_fixed(payloads)
+                out = self._decode_fixed(payloads, header.orig_size)
         if out is None:
             # Blocks past the descriptor bound, or non-strict streams with
             # the native runtime at hand: its threaded decoder.
@@ -283,7 +299,7 @@ class BlockParallelCodec:
             plens[i] = len(p)
         return mat, plens
 
-    def _decode_fixed(self, payloads) -> bytes:
+    def _decode_fixed(self, payloads, orig_size: int) -> bytes:
         rt = self._host_pass2()
         with self._stage("dec_host_prep"):
             width = ((max(len(p) for p in payloads) + 2) // 3) * 3
@@ -293,17 +309,18 @@ class BlockParallelCodec:
             plens_t = torch.from_numpy(plens).to(self.device)
         little = self.spec.endianness is Endianness.LITTLE
         if rt is None:
-            out, totals, errs, err_codes = decode_fixed_all_device(
-                mat_t, plens_t, self.block_size, little, self._stage)
+            out, _, errs, err_codes = decode_fixed_all_device(
+                mat_t, plens_t, self.block_size, little, self._stage,
+                flat=True)
             self._raise_pass1(errs, err_codes)
-            return self._gather(out, totals)
+            return self._gather(out, orig_size)
         with self._stage("dec_pass1"):
             words, _, _, errs, err_codes, codes = decode_pass1_fixed(
                 mat_t, plens_t, self.block_size, little)
         self._raise_pass1(errs, err_codes)
         return self._apply(rt, words, len(payloads), codes)
 
-    def _decode_variable(self, payloads) -> bytes | None:
+    def _decode_variable(self, payloads, orig_size: int) -> bytes | None:
         """Strict-schedule decode; None when any block is non-strict."""
         rt = self._host_pass2()
         with self._stage("dec_host_prep"):
@@ -311,9 +328,9 @@ class BlockParallelCodec:
                 payloads, max(len(p) for p in payloads)
             )
         if rt is None:
-            out, totals, errs, err_codes, strict = decode_variable_all_device(
+            out, _, errs, err_codes, strict = decode_variable_all_device(
                 mat, plens, self.spec, self.block_size, self.device,
-                self._stage)
+                self._stage, flat=True)
         else:
             p = variable_pass1(mat, plens, self.spec, self.block_size,
                                self.device, stage=self._stage)
@@ -322,7 +339,7 @@ class BlockParallelCodec:
             return None
         self._raise_pass1(errs, err_codes)
         if rt is None:
-            return self._gather(out, totals)
+            return self._gather(out, orig_size)
         return self._apply(rt, p.words, len(payloads), p.dense)
 
     def _decode_variable_nonstrict(self, payloads) -> bytes:
@@ -352,12 +369,17 @@ class BlockParallelCodec:
             outs, tlens = rt.apply_words(words, self.block_size, codes=codes)
             return b"".join(outs[i, : tlens[i]].tobytes() for i in range(n))
 
-    def _gather(self, out: torch.Tensor, totals: torch.Tensor) -> bytes:
-        """The blocks' decoded bytes back to back, one D2H copy."""
+    def _gather(self, flat: torch.Tensor, orig_size: int) -> bytes:
+        """The blocks' decoded bytes, which the flat walk wrote back to
+        back: a length check against the container's, then one copy into
+        pinned host memory."""
         with self._stage("dec_d2h_out"):
-            keep = (torch.arange(out.shape[1], device=out.device)[None, :]
-                    < totals[:, None])
-            return out[keep].cpu().numpy().tobytes()
+            if flat.numel() != orig_size:
+                raise framing.FramingError(
+                    f"decoded {flat.numel()} bytes, container claims "
+                    f"{orig_size}"
+                )
+            return to_host(flat).tobytes()
 
     # ---- streaming container API ----------------------------------------------
 

@@ -11,8 +11,8 @@ For the gif7 image container (128 MiB, 64 KiB blocks) and the fixed-12 one
 the device time of every kernel and copy (events on the device only, not
 the host ops that launched them), their ratio (the busy share; one stream,
 so nothing overlaps) and the eight largest device events.  Last, the
-pass-2 wrapper at the gif7 shape beside its prefix-sum glue alone, by CUDA
-events.  Each number is printed beside the card's
+flat pass-2 wrapper at the gif7 shape beside its word-offset scan kernel
+alone, by CUDA events.  Each number is printed beside the card's
 ``nvidia-smi`` name and power limit.
 """
 
@@ -113,7 +113,7 @@ def main() -> int:
                                        pass2=route)
             profile_route(f"{name} {route}", codec, container, data)
 
-    # Pass 2 at the gif7 main shape: the wrapper and its prefix-sum glue.
+    # Pass 2 at the gif7 main shape: the flat wrapper and its scan kernel.
     spec = LzwSpec.gif(7)
     data = _tile(tokyo, 128 * MiB)
     container = BlockParallelCodec(spec, device="cuda").encode(data)
@@ -125,12 +125,13 @@ def main() -> int:
         plens[i] = len(p)
     p = tdec.variable_pass1(mat, plens, spec, 1 << 16, "cuda",
                            rows="stride2")
-    wrapper = cuda_ms(lambda: tdec.decode_pass2_stride2(
-        p.dense, p.words, p.pair, p.counts_t, 1 << 16, spec, p.sched))
-    glue = cuda_ms(lambda: tdec._word_ends(p.words, p.counts_t))
-    print(f"{smi}: pass-2 wrapper {wrapper:.3f} ms, prefix-sum glue alone "
-          f"{glue:.3f} ms, at N={mat.shape[0]} S={p.dense.shape[1]}",
-          flush=True)
+    wrapper = cuda_ms(lambda: tdec.decode_pass2_stride2_flat(
+        p.dense, p.words, p.pair, p.counts_t, p.totals, 1 << 16, spec,
+        p.sched))
+    scan = cuda_ms(lambda: tdec.word_ends(p.words, p.counts_t, 1 << 16))
+    print(f"{smi}: flat pass-2 wrapper {wrapper:.3f} ms, scan kernel "
+          f"word_ends alone {scan:.3f} ms, at N={mat.shape[0]} "
+          f"S={p.dense.shape[1]}", flush=True)
     return 0
 
 

@@ -131,6 +131,80 @@ def test_stride1_kernels_match_plain(name, cuda):
         assert (out[i, : lens[i]] == mat[i, : lens[i]]).all()
 
 
+@pytest.mark.parametrize("block_size", [1 << 17, 5000])
+def test_word_ends_kernel_matches_plain(block_size, cuda):
+    # Rows spanning three of the kernel's 4096-slot tiles, rows cut at a
+    # tile's edge, empty rows, counts past S and below 0, holes, and (at
+    # 5000) ends clipped to the block size; the kernel writes live slots
+    # only.
+    rng = np.random.default_rng(5)
+    N, S = 40, 9000
+    kind = rng.integers(0, 4, (N, S))
+    lens = rng.integers(0, 4096 if block_size == 5000 else 8, (N, S))
+    w = ((kind << 29) | (lens << 17) | rng.integers(0, 1 << 17, (N, S)))
+    words = torch.from_numpy(w.astype(np.int32)).to(cuda)
+    n = rng.integers(0, S + 1, N)
+    n[:7] = [0, 1, 4095, 4096, 4097, S, S + 9]
+    n[7] = -2
+    n_codes = torch.from_numpy(n.astype(np.int32)).to(cuda)
+    before = build.LAUNCHES["word_ends"]
+    got = tdec.word_ends(words, n_codes, block_size)
+    assert build.LAUNCHES["word_ends"] == before + 1
+    want = tdec._word_ends(words, n_codes, block_size)
+    live = (torch.arange(S, device=cuda)[None, :]
+            < n_codes.long()[:, None])
+    assert torch.equal(got[live], want[live])
+    assert bool((want[live] == block_size).any()) == (block_size == 5000)
+
+
+@pytest.mark.parametrize("stride2", [True, False], ids=["stride2", "stride1"])
+@pytest.mark.parametrize("name", list(SPECS))
+def test_flat_walks_match_plain(name, stride2, cuda):
+    # The flat walk against its plain version, the padded walk's masked
+    # rows and the blocks; a corrupt middle block (long words, noise pair
+    # rows) leaves the blocks around it as they were.
+    spec = SPECS[name]
+    mat, lens = _blocks(spec, 16, 6000, seed=len(name) + 20)
+    lens[3] = 0
+    lens_t = torch.from_numpy(lens).to(cuda)
+    dense, counts, _, _ = tenc.encode_blocks_codes(
+        torch.from_numpy(mat).to(cuda), lens_t, spec)
+    codes, cnt_t, sched_t = _decode_inputs(spec, dense, counts, cuda)
+    words, totals, err, _, pair = tdec.decode_pass1(
+        codes, cnt_t, spec, 6000, sched_t,
+        rows="stride2" if stride2 else "stride1")
+    assert not err.any()
+    if stride2:
+        flat, padded = tdec.decode_pass2_stride2_flat, tdec.decode_pass2_stride2
+        plain, walk = tdec.decode_pass2_stride2_reference, "decode_pass2"
+    else:
+        flat, padded = tdec.decode_pass2_device_flat, tdec.decode_pass2_device
+        plain, walk = tdec.decode_pass2_device_reference, "decode_pass2_stride1"
+    vspec = spec if spec.variable else None
+    before = dict(build.LAUNCHES)
+    got = flat(codes, words, pair, cnt_t, totals, 6000, vspec, sched_t)
+    assert build.LAUNCHES[walk] == before[walk] + 1
+    assert build.LAUNCHES["word_ends"] == before["word_ends"] + 1
+    assert torch.equal(got, plain(codes, words, pair, cnt_t, 6000, vspec,
+                                  sched_t, totals))
+    rows = padded(codes, words, pair, cnt_t, 6000, vspec, sched_t).cpu()
+    want = b"".join(mat[i, : lens[i]].tobytes() for i in range(len(lens)))
+    assert got.cpu().numpy().tobytes() == want == b"".join(
+        rows[i, : lens[i]].numpy().tobytes() for i in range(len(lens)))
+
+    words, pair, codes = words.clone(), pair.clone(), codes.clone()
+    words[1] = (words[1] & ~(0xFFF << 17)) | (4000 << 17)
+    pair[1] = torch.from_numpy(np.random.default_rng(6).integers(
+        -2**31, 2**31, pair.shape[1]).astype(np.int32)).to(cuda)
+    codes[1] = codes[1] + 3
+    got = flat(codes, words, pair, cnt_t, totals, 6000, vspec,
+               sched_t).cpu().numpy()
+    assert got.size == int(lens.sum())
+    b0, b2 = int(lens[0]), int(lens[:2].sum())
+    assert got[:b0].tobytes() == want[:b0]
+    assert got[b2:].tobytes() == want[b2:]
+
+
 def test_chain_edge_cases_match_plain(cuda):
     # The one-chain-per-warp kernels on the edges their design adds: warps
     # of one CTA that finish at different times, partly filled CTAs, more
@@ -172,6 +246,7 @@ def test_container_device_pass2_on_card(name, cuda, monkeypatch):
     before = dict(build.LAUNCHES)
     assert codec.decode(container) == data
     assert build.LAUNCHES["decode_pass2"] == before["decode_pass2"] + 1
+    assert build.LAUNCHES["word_ends"] == before["word_ends"] + 1
 
 
 def _parse_input(rng, G, B, L):
