@@ -23,7 +23,7 @@ Phases, one line each, any failure exits non-zero:
    length 0, 1, 2 and B in one launch, partly filled CTAs and more blocks
    than one round of chains, full tables, resets, KwKwK runs, errors and
    the words past each block's stop), pass 1 with every row kind, exact;
-4. the slice: ``BlockParallelCodec(LzwSpec.gif(7), device="cuda")`` on
+4. the slice: ``BlockParallelCodec(LzwSpec.gif(7), device="cuda:0")`` on
    128 MiB (2048 x 64 KiB blocks) of the tiled image corpus and of the tiled
    text corpus: every payload equal to the native runtime's encoder, and a
    byte-exact round trip through each decode route, the hybrid
@@ -55,11 +55,31 @@ Phases, one line each, any failure exits non-zero:
    ``probe_gpu all`` at the JAX scripts' shapes, counted to launch each
    of the four probe kernels, every gather OK and the sweep's time
    following T; then each probe kernel against its plain version on the
-   same inputs in every variant, exact, and the yardstick library calls.
+   same inputs in every variant, exact, and the yardstick library calls;
+9. the row split: ``BlockParallelCodec`` over every visible GPU (and, on a
+   one-GPU machine, over ``["cuda:0", "cuda:0"]``: two ranges at once on
+   one card) beside one device, on the 128 MiB gif7 image and the 32 MiB
+   fixed-12 one: payloads equal to one device's container, a round trip
+   on every ``pass2`` route, each run's launch and native-call counts
+   exactly its ranges times one device's, MiB/s of both in turns; a
+   corrupt block in the second range raises its own code, and with one in
+   the first range too, the first one's;
+10. block ranges over two processes: ``MultiHostBlockCodec`` on ``gloo``
+   (and on ``nccl`` with two GPUs or more), each rank on cuda:(rank %
+   device count), the 128 MiB gif7 image through ``encode``,
+   ``encode_shards`` and ``decode``: every rank's containers equal to the
+   one-process container, round trips exact, wall times;
+11. the single-stream facades on the native runtime (host MiB/s, no kernel
+   launched): the golden file, bytes and stream round trips of 16 MiB of
+   the image plane in gif7, TIFF and fixed-12 of both endiannesses, the
+   corrupt TIFF stream's code 258;
+12. ``lzw_tpu_torch.entry``: ``entry()``'s encode step on the card equal to
+   the native encoder, and ``dryrun_multichip`` over every visible GPU.
 
-Each timing of the encode-parse and pass-1 kernels also prints their
-chains in flight (CTAs per SM from the occupancy query x warps per CTA x
-SMs), the rounds of chains the launch takes and the ns per chain step:
+Phases 1-8 run on cuda:0.  Each timing of the encode-parse and pass-1
+kernels also prints their chains in flight (CTAs per SM from the occupancy
+query x warps per CTA x SMs), the rounds of chains the launch takes and the
+ns per chain step:
 the kernel's time over rounds x steps of the longest block.  Each timing
 of a walk (``[walk]`` lines) prints the walk's launch alone, the scan, the
 torch call the scan replaced, the flat and padded wrappers, the longest
@@ -75,9 +95,11 @@ JAX or of the JAX package ``lzw_tpu``.
 
 from __future__ import annotations
 
+import hashlib
 import json
 import pathlib
 import sys
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import NamedTuple
@@ -126,6 +148,8 @@ PROBE_KERNELS = ("ablate_parse", "ablate_ring", "probe_scan", "probe_gather")
 # Calls of the native runtime's decode entry points, by name; the
 # all-device route must make none.
 HOST_CALLS = {"apply_words": 0, "decode_blocks": 0}
+# The container calls them from one thread per device range.
+HOST_LOCK = threading.Lock()
 
 
 def say(phase: str, msg: str) -> None:
@@ -441,7 +465,8 @@ def count_host_calls() -> None:
         fn = getattr(NativeRuntime, name)
 
         def counted(self, *args, _fn=fn, _name=name, **kwargs):
-            HOST_CALLS[_name] += 1
+            with HOST_LOCK:
+                HOST_CALLS[_name] += 1
             return _fn(self, *args, **kwargs)
 
         setattr(NativeRuntime, name, counted)
@@ -457,8 +482,9 @@ def timed_run(fn, expect: dict[str, int], label: str):
     from lzw_tpu_torch.kernels import build
 
     build.reset_counts()
-    for name in HOST_CALLS:
-        HOST_CALLS[name] = 0
+    with HOST_LOCK:
+        for name in HOST_CALLS:
+            HOST_CALLS[name] = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     out = fn()
@@ -516,7 +542,7 @@ def d2h_line(label: str, data: bytes, device) -> None:
 
 
 def run_container(spec, data: bytes, block: int, label: str,
-                  device="cuda"):
+                  device="cuda:0"):
     """Encode, then decode by both routes, through BlockParallelCodec with
     every check; returns the launch counts of the three runs."""
     from lzw_tpu_torch import BlockParallelCodec
@@ -592,7 +618,8 @@ def run_container(spec, data: bytes, block: int, label: str,
     return launches
 
 
-def run_nonstrict(spec, data: bytes, block: int, label: str, device="cuda"):
+def run_nonstrict(spec, data: bytes, block: int, label: str,
+                  device="cuda:0"):
     """Decode a container of foreign early-CLEAR streams with
     ``pass2="device"`` and ``"auto"``; checks it against the input and the
     native runtime, and the decode kernels against their plain versions at
@@ -665,7 +692,8 @@ def run_nonstrict(spec, data: bytes, block: int, label: str, device="cuda"):
     return launches
 
 
-def run_stride1(spec, data: bytes, block: int, label: str, device="cuda"):
+def run_stride1(spec, data: bytes, block: int, label: str,
+                device="cuda:0"):
     """The all-device decode of a container's payloads with ``stride2=False``
     beside the default ``stride2=True``, in turns (2, 1, 1, 2), each run
     counted to launch its own walk and no native call and its bytes checked
@@ -914,6 +942,343 @@ def run_probes(device):
     return launches, res
 
 
+def corrupt_stream(spec, bad_code: int) -> bytes:
+    """A strict one-block stream whose sixth code is ``bad_code``, past the
+    decoder's next index: pass 1 reports exactly that code."""
+    from lzw_tpu_torch.ops import reference as oracle
+
+    codes = oracle.encode_codes(bytes((i * 7) % 40 for i in range(300)), spec)
+    k = 6 if spec.variable else 5  # after the leading CLEAR, if any
+    codes[k] = (bad_code, codes[k][1])
+    return oracle.pack_codes(codes, spec.endianness)
+
+
+def run_split(spec, data: bytes, block: int, label: str, lists):
+    """Phase 9: the container over each device list of ``lists`` beside one
+    device (cuda:0), every codec warmed up once, then counted runs in turns
+    (one device, the lists, the lists again, one device): payloads equal to
+    one device's container, a round trip on every ``pass2`` route, each
+    run's launch and native-call counts exactly its ranges times one
+    device's, none on the device route; then a corrupt block in the second
+    range of the last list raises its own code, and with one in the first
+    range too, the first one's.  Returns (the counted runs' launch counts,
+    one device's container)."""
+    from lzw_tpu_torch import BlockParallelCodec, UnexpectedCodeError
+    from lzw_tpu_torch.kernels import build
+    from lzw_tpu_torch.parallel import framing
+
+    routes = ("host", "device", "auto")
+    device_route = {"decode_pass1": 1, "word_ends": 1, "decode_pass2": 1,
+                    "apply_words": 0, "decode_blocks": 0}
+    expect = {"encode": {"encode_parse": 1},
+              "host": {"decode_pass1": 1, "word_ends": 0, "decode_pass2": 0,
+                       "apply_words": 1, "decode_blocks": 0},
+              "device": device_route, "auto": device_route}
+    configs = {"cuda:0": ["cuda:0"]}
+    configs.update({",".join(map(str, devs)): devs for devs in lists})
+    codecs = {name: {r: BlockParallelCodec(spec, block_size=block,
+                                           device=devs, pass2=r)
+                     for r in routes} for name, devs in configs.items()}
+    for by_route in codecs.values():
+        by_route["auto"].decode(by_route["auto"].encode(data))
+    n_blocks = -(-len(data) // block)
+    secs = {name: {step: [] for step in ("encode", *routes)}
+            for name in codecs}
+    counts = {}
+    launches = []
+    one_container = None
+
+    def counted(name, step, fn):
+        dt, out, lc = timed_run(fn, expect[step], f"{label} {name} {step}")
+        got = {**{k: lc[k] for k in build.KERNELS}, **HOST_CALLS}
+        ranges = len(codecs[name]["auto"]._ranges(n_blocks))
+        want = {k: v * ranges for k, v in counts["cuda:0", step].items()} if (
+            ("cuda:0", step) in counts) else got
+        if got != want:
+            raise AssertionError(f"{label} {name} {step}: counts {got}, "
+                                 f"expected {ranges} x one device's {want}")
+        counts.setdefault((name, step), got)
+        secs[name][step].append(dt)
+        launches.append(lc)
+        return out
+
+    for name in [*codecs, *reversed(codecs)]:
+        by_route = codecs[name]
+        container = counted(name, "encode",
+                            lambda c=by_route["auto"]: c.encode(data))
+        one_container = one_container or container
+        if container != one_container:
+            raise AssertionError(f"{label} {name}: payloads differ from one "
+                                 "device's container")
+        for r in routes:
+            out = counted(name, r, lambda c=by_route[r]: c.decode(container))
+            if out != data:
+                raise AssertionError(f"{label} {name} {r}: round trip differs")
+
+    # Where a device-route decode's time goes, each stage synchronised
+    # (with several devices, per device; the ranges' D2H and their join
+    # into the result are dec_d2h_out).
+    mib = len(data) / MiB
+    for name, devs in configs.items():
+        stages: dict[str, float] = {}
+        BlockParallelCodec(spec, block_size=block, device=devs,
+                           pass2="device", stage_times=stages).decode(
+            one_container)
+        stage_line(f"{label} over {name}", "decode device", stages, mib)
+
+    # A corrupt block in the second range, then one in the first as well.
+    name = list(configs)[-1]
+    ranges = codecs[name]["auto"]._ranges(n_blocks)
+    if len(ranges) < 2:
+        raise AssertionError(f"{label} {name}: one range only")
+    _, payloads = framing.parse_frame(one_container)
+    payloads = [bytes(p) for p in payloads]
+    bad = (250, 251) if spec.variable else (4000, 4001)
+    payloads[ranges[1].lo + 3] = corrupt_stream(spec, bad[1])
+    for corrupt, code in (({}, bad[1]), ({5: bad[0]}, bad[0])):
+        for i, c in corrupt.items():
+            payloads[i] = corrupt_stream(spec, c)
+        frame = framing.pack_frame(spec, block, len(data), payloads)
+        for r in ("host", "device"):
+            try:
+                codecs[name][r].decode(frame)
+            except UnexpectedCodeError as exc:
+                if exc.code != code:
+                    raise AssertionError(f"{label} {name} {r}: raised code "
+                                         f"{exc.code}, expected {code}")
+            else:
+                raise AssertionError(f"{label} {name} {r}: corrupt block "
+                                     "decoded")
+
+    for name in codecs:
+        n_ranges = len(codecs[name]["auto"]._ranges(n_blocks))
+        say("split", f"{label} over {name}: {mib:.0f} MiB, {n_ranges} "
+            "range(s); payloads == one device's container, round trip exact "
+            "on every route, counts == ranges x one device's exactly, no "
+            "native call on the device route; counts per run: " + "; ".join(
+                f"{step} " + ", ".join(
+                    f"{k} {v}" for k, v in counts[name, step].items() if v)
+                for step in secs[name]) + "; MiB/s in run order: " + "; ".join(
+                f"{step} " + ", ".join(f"{mib / t:.1f}" for t in ts)
+                for step, ts in secs[name].items()))
+    say("split", f"{label} over {name}: a corrupt block in range 2 raised "
+        f"its code {bad[1]}, and with one in range 1 as well, range 1's "
+        f"{bad[0]} (host and device routes)")
+    return launches, one_container
+
+
+def multihost_worker(argv) -> int:
+    """One rank of phase 10 (``chip_smoke.py --multihost-worker BACKEND
+    WORLD RANK PORT``): MultiHostBlockCodec over the group on
+    cuda:(rank % device count), the 128 MiB gif7 image through ``encode``,
+    ``encode_shards`` (this rank's half) and ``decode``, each step timed
+    between barriers; prints one ``RESULT {json}`` line."""
+    backend, world, rank, port = argv[0], *map(int, argv[1:4])
+    sys.path.insert(0, str(ROOT))
+    import hashlib
+
+    import torch
+    import torch.distributed as dist
+
+    from lzw_tpu_torch import BlockParallelCodec, LzwSpec
+    from lzw_tpu_torch.kernels import build
+    from lzw_tpu_torch.parallel import MultiHostBlockCodec, multihost
+    from lzw_tpu_torch.utils.corpus import load_tokyo_pixels
+
+    dev = rank % torch.cuda.device_count()
+    torch.cuda.set_device(dev)
+    multihost.initialize(backend=backend,
+                         init_method=f"tcp://127.0.0.1:{port}",
+                         world_size=world, rank=rank)
+    spec, bs = LzwSpec.gif(7), 1 << 16
+    tokyo = load_tokyo_pixels(ROOT / "test-assets" / "tokyo_128_colors.png")
+    data = tile(tokyo, 128 * MiB)
+    codec = MultiHostBlockCodec(spec, bs, local_codec=BlockParallelCodec(
+        spec, bs, device=f"cuda:{dev}"))
+    small = data[: 4 * MiB]  # warm-up: kernel modules, pinned memory
+    codec.decode(codec.encode(small))
+    lo, hi = multihost._process_slice(-(-len(data) // bs), rank, world)
+    shard = data[lo * bs : hi * bs]
+    build.reset_counts()
+    secs = {}
+
+    def step(name, fn):
+        dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        secs[name] = time.perf_counter() - t0
+        return out
+
+    container = step("encode", lambda: codec.encode(data))
+    sharded = step("encode_shards",
+                   lambda: codec.encode_shards(shard, len(data)))
+    out = step("decode", lambda: codec.decode(container))
+    launches = dict(build.LAUNCHES)
+    dist.barrier()
+    dist.destroy_process_group()
+    print("RESULT " + json.dumps({
+        "rank": rank, "device": f"cuda:{dev}", "secs": secs,
+        "container": hashlib.sha256(container).hexdigest(),
+        "sharded": hashlib.sha256(sharded).hexdigest(),
+        "round_trip": out == data, "launches": launches}), flush=True)
+    return 0
+
+
+def run_multihost(want_digest: str) -> list[dict]:
+    """Phase 10: two processes on ``gloo`` (and on ``nccl`` with two GPUs or
+    more) run :func:`multihost_worker`; every rank's container and sharded
+    container must be the one-process container (``want_digest``), its
+    round trip exact and its launches one range's.  Returns the ranks'
+    launch counts."""
+    import socket
+    import subprocess
+
+    import torch
+
+    n_gpu = torch.cuda.device_count()
+    backends = ["gloo"] + (["nccl"] if n_gpu >= 2 else [])
+    per_rank = {"encode_parse": 2, "decode_pass1": 1, "word_ends": 1,
+                "decode_pass2": 1}
+    launches = []
+    for backend in backends:
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--multihost-worker",
+             backend, "2", str(rank), str(port)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            cwd=str(ROOT)) for rank in range(2)]
+        try:
+            outs = [p.communicate(timeout=600)[0] for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        wall = time.perf_counter() - t0
+        results = []
+        for rank, (p, out) in enumerate(zip(procs, outs)):
+            lines = [ln for ln in out.splitlines() if ln.startswith("RESULT ")]
+            if p.returncode != 0 or not lines:
+                raise AssertionError(f"multihost {backend} rank {rank} "
+                                     f"failed:\n{out[-3000:]}")
+            results.append(json.loads(lines[-1][len("RESULT "):]))
+        for r in results:
+            got = {k: r["launches"][k] for k in per_rank}
+            if not (r["container"] == r["sharded"] == want_digest
+                    and r["round_trip"] and got == per_rank):
+                raise AssertionError(f"multihost {backend}: {r}")
+            launches.append(r["launches"])
+        say("multihost", f"{backend}, 2 ranks on "
+            + ", ".join(r["device"] for r in results)
+            + ": 128 MiB gif7 image, containers of encode and encode_shards "
+            "identical across ranks and == the one-process container, round "
+            f"trip exact, launches one range's each; wall {wall:.1f} s with "
+            "the processes' start; per rank s (encode, encode_shards, "
+            "decode): " + "; ".join(
+                ", ".join(f"{r['secs'][k]:.3f}" for k in
+                          ("encode", "encode_shards", "decode"))
+                for r in results))
+    if n_gpu < 2:
+        say("multihost", f"nccl not run: {n_gpu} GPU visible, and NCCL "
+            "refuses two ranks on one GPU")
+    return launches
+
+
+def run_facades(image: bytes) -> None:
+    """Phase 11: the single-stream facades on the native runtime, on the
+    host: the golden file, bytes and stream round trips of 16 MiB of the
+    image plane for gif7, TIFF and fixed-12 (both endiannesses), and the
+    reference's corrupt TIFF stream."""
+    import io
+
+    from lzw_tpu_torch import (
+        Endianness, FixedCodec, GifCodec, TiffCodec, UnexpectedCodeError,
+    )
+
+    lorem = (ROOT / "test-assets" / "lorem_ipsum.txt").read_bytes()
+    golden = (ROOT / "test-assets" / "lorem_ipsum_encoded.bin").read_bytes()
+    auto = GifCodec(7)
+    if auto.backend != "native" or auto.encode(lorem) != golden or (
+            auto.decode(golden) != lorem):
+        raise AssertionError("GifCodec(7) does not give the golden file back")
+    data = image[: 16 * MiB]
+    mib = len(data) / MiB
+    rates = []
+    for label, codec in (
+            ("gif7", GifCodec(7, backend="native")),
+            ("tiff", TiffCodec(backend="native")),
+            ("fixed-12 LE", FixedCodec(Endianness.LITTLE, backend="native")),
+            ("fixed-12 BE", FixedCodec(Endianness.BIG, backend="native"))):
+        t = {}
+
+        def timed(name, fn):
+            t0 = time.perf_counter()
+            out = fn()
+            t[name] = time.perf_counter() - t0
+            return out
+
+        enc = timed("encode", lambda: codec.encode(data))
+        dec = timed("decode", lambda: codec.decode(enc))
+        dst = io.BytesIO()
+        timed("encode_stream", lambda: codec.encode_stream(io.BytesIO(data),
+                                                           dst))
+        out = io.BytesIO()
+        timed("decode_stream", lambda: codec.decode_stream(
+            io.BytesIO(dst.getvalue()), out))
+        if dec != data or dst.getvalue() != enc or out.getvalue() != data:
+            raise AssertionError(f"facade {label}: a round trip differs")
+        rates.append(f"{label} (ratio {len(enc) / len(data):.4f}) "
+                     + ", ".join(f"{k} {mib / v:.1f}" for k, v in t.items()))
+    try:
+        TiffCodec(backend="native").decode(bytes(
+            [0x1F, 0x40, 0x3A, 0, 0, 0, 0x44, 0, 0, 0x44, 0, 0x60, 0x54]))
+    except UnexpectedCodeError as exc:
+        if exc.code != 258:
+            raise AssertionError(f"corrupt TIFF: code {exc.code}, not 258")
+    else:
+        raise AssertionError("corrupt TIFF decoded")
+    say("facades", "GifCodec(7) == the golden file both ways; bytes and "
+        "stream round trips exact; corrupt TIFF raised code 258; host-runtime "
+        f"MiB/s (native, one thread) on {mib:.0f} MiB: " + "; ".join(rates))
+
+
+def run_entry() -> list[dict]:
+    """Phase 12: ``entry()``'s step on the card against the native encoder
+    on the same bytes, then ``dryrun_multichip`` over every visible GPU.
+    Returns both runs' launch counts."""
+    import torch
+
+    from lzw_tpu_torch import Endianness, LzwSpec
+    from lzw_tpu_torch.entry import dryrun_multichip, entry
+    from lzw_tpu_torch.native.runtime import get_runtime
+
+    fn, args = entry()
+    _, (buf, n_bytes, err), l_entry = timed_run(
+        lambda: fn(*args), {"encode_parse": 1, "decode_pass1": 0}, "entry")
+    buf, n_bytes = buf.cpu().numpy(), n_bytes.cpu().numpy()
+    native = get_runtime().encode_blocks(
+        args[0].cpu().numpy().tobytes(), LzwSpec.fixed(Endianness.LITTLE),
+        args[0].shape[1])
+    if err.any() or [buf[i, : n_bytes[i]].tobytes()
+                     for i in range(len(native))] != native:
+        raise AssertionError("entry(): payloads differ from native "
+                             "encode_blocks")
+    n = torch.cuda.device_count()
+    _, _, l_dry = timed_run(
+        lambda: dryrun_multichip(n),
+        {"encode_parse": 1, "decode_pass1": 1, "word_ends": 1,
+         "decode_pass2": 1, "apply_words": 0}, "dryrun_multichip")
+    say("entry", f"entry() on {args[0].device}: 4 x 4096 B == native "
+        f"encode_blocks, launches {l_entry}; dryrun_multichip({n}) round "
+        f"trips exact, launches {l_dry}")
+    return [l_entry, l_dry]
+
+
 def main() -> int:
     if not (ROOT / "lzw_tpu_torch").is_dir():
         print("chip_smoke.py: lzw_tpu_torch/ not found beside the script; "
@@ -1021,6 +1386,31 @@ def main() -> int:
     add([launches])
     full.update(probes)
 
+    # 9. The row split over every visible GPU (and cuda:0 twice on one).
+    from lzw_tpu_torch.parallel import default_devices
+
+    lists = [default_devices()]
+    if torch.cuda.device_count() == 1:
+        lists.append([device, device])
+    image = tile(tokyo, 128 * MiB)
+    launches, one_container = run_split(gif7, image, 1 << 16, "gif7 image",
+                                        lists)
+    add(launches)
+    add(run_split(fixed, tile(tokyo, 32 * MiB), 1 << 12, "fixed-12 image",
+                  lists)[0])
+
+    # 10. Block ranges over two processes.
+    add(run_multihost(hashlib.sha256(one_container).hexdigest()))
+    del one_container
+
+    # 11. The single-stream facades (host runtime; no kernel may launch).
+    timed_run(lambda: run_facades(image),
+              {"encode_parse": 0, "decode_pass1": 0, "word_ends": 0,
+               "decode_pass2": 0}, "facades")
+
+    # 12. The entry module.
+    add(run_entry())
+
     kernels = []
     for name, (src, rep) in KERNEL_SOURCES.items():
         r = full[name]
@@ -1039,4 +1429,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--multihost-worker"]:
+        sys.exit(multihost_worker(sys.argv[2:]))
     sys.exit(main())

@@ -15,7 +15,8 @@ no fallback to the plain versions for CUDA tensors.
 Every wrapper adds one to its kernel's count in :data:`LAUNCHES` where it
 launches the kernel, so a run can show that its main path went through the
 kernels.  A source with several launch functions (``probe_gather.cu``)
-counts them under its one name.
+counts them under its one name.  The counts are kept under a lock: the
+container launches from one thread per device.
 """
 
 from __future__ import annotations
@@ -43,6 +44,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 
 LAUNCHES = {name: 0 for name in KERNELS}
+_count_lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
 # One lock per kernel: different kernels may build at the same time.
 _locks = {name: threading.Lock() for name in KERNELS}
@@ -111,15 +113,17 @@ def load(name: str) -> ctypes.CDLL:
 
 def reset_counts() -> None:
     """Set every kernel's launch count to 0."""
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    with _count_lock:
+        for name in LAUNCHES:
+            LAUNCHES[name] = 0
 
 
 def check_launch(name: str, rc: int) -> None:
     """Raise on a non-zero ``cudaGetLastError`` from a launch, else count it."""
     if rc != 0:
         raise RuntimeError(f"kernel {name} failed to launch: CUDA error {rc}")
-    LAUNCHES[name] += 1
+    with _count_lock:
+        LAUNCHES[name] += 1
 
 
 def require_tensor(t, what: str, dtype, ndim: int, device) -> None:

@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+import threading
 from typing import NamedTuple
 
 import torch
@@ -42,6 +43,7 @@ LAYOUTS = {
 }
 
 _ctas: dict[tuple[str, int], int] = {}
+_ctas_lock = threading.Lock()
 
 
 class Geometry(NamedTuple):
@@ -84,22 +86,27 @@ def ctas_per_sm(name: str, device) -> int:
     dev = torch.device(device)
     index = torch.cuda.current_device() if dev.index is None else dev.index
     key = (name, index)
-    if key not in _ctas:
-        warps, chain = LAYOUTS[name]
-        fn = getattr(build.load(name), f"{name}_occupancy")
-        fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-        out = ctypes.c_int(0)
-        with torch.cuda.device(index):
-            rc = fn(warps, warps * chain, ctypes.addressof(out))
-        if rc != 0:
-            raise RuntimeError(f"kernel {name}: occupancy query failed: CUDA "
-                               f"error {rc}")
-        if out.value < 1:
-            raise RuntimeError(f"kernel {name}: no CTA of {warps} warps fits "
-                               "an SM")
-        _ctas[key] = out.value
-    return _ctas[key]
+    with _ctas_lock:
+        if key not in _ctas:
+            _ctas[key] = _query_ctas(name, index)
+        return _ctas[key]
+
+
+def _query_ctas(name: str, index: int) -> int:
+    warps, chain = LAYOUTS[name]
+    fn = getattr(build.load(name), f"{name}_occupancy")
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    out = ctypes.c_int(0)
+    with torch.cuda.device(index):
+        rc = fn(warps, warps * chain, ctypes.addressof(out))
+    if rc != 0:
+        raise RuntimeError(f"kernel {name}: occupancy query failed: CUDA "
+                           f"error {rc}")
+    if out.value < 1:
+        raise RuntimeError(f"kernel {name}: no CTA of {warps} warps fits "
+                           "an SM")
+    return out.value
 
 
 def _sms(device) -> int:

@@ -365,19 +365,22 @@ class VariablePass1(NamedTuple):
 
 def variable_pass1(payloads_np: np.ndarray, plens_np, spec: LzwSpec,
                    block_size: int, device="cpu", rows: str = "none",
-                   stage=None) -> VariablePass1:
+                   stage=None, prep=None) -> VariablePass1:
     """Strict variable-flavor pass 1 from payload bytes
     (``_variable_pass1_from_payloads``): host count recovery, H2D, device
     unpack, :func:`decode_pass1` with pair rows of kind ``rows``.
 
     ``stage(name)``, when given, is a context manager timing each step
     (``dec_count_recovery``, ``dec_h2d``, ``dec_unpack``, ``dec_pass1``).
+    ``prep``, when given, is :func:`prepare_variable_decode`'s result for
+    these payloads, so a caller that has checked ``strict`` on the host does
+    not recover the counts twice.
     """
     stage = stage or _no_stage
-    with stage("dec_count_recovery"):
-        counts, strict, sched_arr, S = prepare_variable_decode(
-            payloads_np, plens_np, spec
-        )
+    if prep is None:
+        with stage("dec_count_recovery"):
+            prep = prepare_variable_decode(payloads_np, plens_np, spec)
+    counts, strict, sched_arr, S = prep
     with stage("dec_h2d"):
         payloads = torch.from_numpy(np.ascontiguousarray(payloads_np)).to(
             device)
@@ -491,10 +494,12 @@ def _launch_walk(kernel: str, codes, pair, n_codes, sched, totals,
     def ptr(t):
         return None if t is None else t.data_ptr()
 
-    stream = torch.cuda.current_stream(codes.device).cuda_stream
-    rc = fn(codes.data_ptr(), plan.ends.data_ptr(), pair.data_ptr(),
-            n_codes.data_ptr(), ptr(sched), ptr(totals), ptr(plan.base), N,
-            S, block_size, alphabet, first_free, out.data_ptr(), stream)
+    with torch.cuda.device(codes.device):
+        stream = torch.cuda.current_stream(codes.device).cuda_stream
+        rc = fn(codes.data_ptr(), plan.ends.data_ptr(), pair.data_ptr(),
+                n_codes.data_ptr(), ptr(sched), ptr(totals), ptr(plan.base),
+                N, S, block_size, alphabet, first_free, out.data_ptr(),
+                stream)
     build.check_launch(kernel, rc)
 
 
@@ -748,10 +753,11 @@ def to_host(flat: torch.Tensor) -> np.ndarray:
 def decode_variable_all_device(payloads_np: np.ndarray, plens_np,
                                spec: LzwSpec, block_size: int,
                                device="cpu", stage=None,
-                               stride2: bool = True, flat: bool = False):
+                               stride2: bool = True, flat: bool = False,
+                               prep=None):
     """Whole strict variable-flavor decode on ``device``
     (``decode_variable_all_device``): :func:`variable_pass1` with pair
-    rows, then pass 2 (stage ``dec_pass2``).
+    rows (``prep`` as there), then pass 2 (stage ``dec_pass2``).
 
     ``stride2`` (the name of ``decode_variable_epochs_run``'s option)
     picks the walk: stride-2 rows and :func:`decode_pass2_stride2` (the
@@ -768,7 +774,8 @@ def decode_variable_all_device(payloads_np: np.ndarray, plens_np,
     (the ``_flat`` walks), as the container returns them.
     """
     p = variable_pass1(payloads_np, plens_np, spec, block_size, device,
-                       rows="stride2" if stride2 else "stride1", stage=stage)
+                       rows="stride2" if stride2 else "stride1", stage=stage,
+                       prep=prep)
     with (stage or _no_stage)("dec_pass2"):
         if flat:
             walk = (decode_pass2_stride2_flat if stride2

@@ -1,6 +1,10 @@
-"""The LZWT block container on one torch device."""
+"""The LZWT block container over torch devices and processes."""
 
 from lzw_tpu_torch.parallel import framing
-from lzw_tpu_torch.parallel.block import BlockParallelCodec
+from lzw_tpu_torch.parallel.block import (
+    BlockParallelCodec, default_devices, local_devices,
+)
+from lzw_tpu_torch.parallel.multihost import MultiHostBlockCodec
 
-__all__ = ["BlockParallelCodec", "framing"]
+__all__ = ["BlockParallelCodec", "MultiHostBlockCodec", "default_devices",
+           "framing", "local_devices"]

@@ -107,16 +107,16 @@ def main() -> int:
     for name, spec, block, size in cells:
         data = _tile(tokyo, size)
         container = BlockParallelCodec(spec, block_size=block,
-                                       device="cuda").encode(data)
+                                       device="cuda:0").encode(data)
         for route in ("host", "device"):
-            codec = BlockParallelCodec(spec, block_size=block, device="cuda",
+            codec = BlockParallelCodec(spec, block_size=block, device="cuda:0",
                                        pass2=route)
             profile_route(f"{name} {route}", codec, container, data)
 
     # Pass 2 at the gif7 main shape: the flat wrapper and its scan kernel.
     spec = LzwSpec.gif(7)
     data = _tile(tokyo, 128 * MiB)
-    container = BlockParallelCodec(spec, device="cuda").encode(data)
+    container = BlockParallelCodec(spec, device="cuda:0").encode(data)
     _, payloads = framing.parse_frame(container)
     mat = np.zeros((len(payloads), max(len(p) for p in payloads)), np.uint8)
     plens = np.zeros(len(payloads), np.int32)

@@ -222,6 +222,7 @@ def test_container_round_trip_on_card(cuda):
                        (LzwSpec.fixed(Endianness.BIG),
                         corpus["lorem_ipsum"] * 8)):
         codec = BlockParallelCodec(spec, device=cuda)
+        assert codec.devices == (cuda,)
         container = codec.encode(data)
         cpu = BlockParallelCodec(spec, device="cpu")
         assert container == cpu.encode(data)
@@ -247,6 +248,68 @@ def test_container_device_pass2_on_card(name, cuda, monkeypatch):
     assert codec.decode(container) == data
     assert build.LAUNCHES["decode_pass2"] == before["decode_pass2"] + 1
     assert build.LAUNCHES["word_ends"] == before["word_ends"] + 1
+
+
+def _split_devices():
+    """Every visible GPU, or cuda:0 twice on a one-GPU machine (two ranges
+    at once on one card)."""
+    n = torch.cuda.device_count()
+    return [f"cuda:{i}" for i in range(n)] if n > 1 else ["cuda:0"] * 2
+
+
+@pytest.mark.parametrize("name", ["gif7", "fixed"])
+def test_row_split_on_card(name, cuda, monkeypatch):
+    from lzw_tpu_torch.native.runtime import NativeRuntime
+
+    corpus = load_corpus(pathlib.Path(__file__).parent.parent / "test-assets")
+    spec = SPECS[name]
+    data = corpus["tokyo"] * 3
+    devices = _split_devices()
+    one = BlockParallelCodec(spec, device="cuda:0")
+    split = BlockParallelCodec(spec, device=devices)
+    counts = []
+    for codec in (one, split):
+        build.reset_counts()
+        container = codec.encode(data)
+        counts.append(build.LAUNCHES["encode_parse"])
+    assert container == one.encode(data)
+    assert counts == [1, len(devices)]
+
+    def host_called(*args, **kwargs):
+        raise AssertionError("the device route called the native runtime")
+
+    for pass2 in ("host", "auto", "device"):
+        codec = BlockParallelCodec(spec, device=devices, pass2=pass2)
+        if pass2 == "device":
+            monkeypatch.setattr(NativeRuntime, "apply_words", host_called)
+        build.reset_counts()
+        assert codec.decode(container) == data
+        assert build.LAUNCHES["decode_pass1"] == len(devices)
+        walks = 0 if pass2 == "host" else len(devices)
+        assert build.LAUNCHES["decode_pass2"] == walks
+        assert build.LAUNCHES["word_ends"] == walks
+    stages = {}
+    BlockParallelCodec(spec, device=devices, stage_times=stages).decode(
+        container)
+    assert {f"dec_pass1@{d}" for d in devices} <= set(stages)
+
+
+def test_entry_on_card(cuda):
+    from lzw_tpu_torch.entry import dryrun_multichip, entry
+    from lzw_tpu_torch.native.runtime import get_runtime
+
+    fn, (blocks, lens) = entry()
+    assert blocks.device.type == "cuda"
+    before = build.LAUNCHES["encode_parse"]
+    buf, n_bytes, err = fn(blocks, lens)
+    assert build.LAUNCHES["encode_parse"] == before + 1
+    assert not err.any()
+    buf, n_bytes = buf.cpu().numpy(), n_bytes.cpu().numpy()
+    native = get_runtime().encode_blocks(
+        blocks.cpu().numpy().tobytes(), LzwSpec.fixed(Endianness.LITTLE),
+        4096)
+    assert [buf[i, : n_bytes[i]].tobytes() for i in range(4)] == native
+    dryrun_multichip(torch.cuda.device_count())
 
 
 def _parse_input(rng, G, B, L):
