@@ -74,7 +74,18 @@ Phases, one line each, any failure exits non-zero:
    the image plane in gif7, TIFF and fixed-12 of both endiannesses, the
    corrupt TIFF stream's code 258;
 12. ``lzw_tpu_torch.entry``: ``entry()``'s encode step on the card equal to
-   the native encoder, and ``dryrun_multichip`` over every visible GPU.
+   the native encoder, and ``dryrun_multichip`` over every visible GPU;
+13. the examples and observability: ``lzw_tpu_torch.examples.usage``
+   against the golden file and ``compress_image_data`` on cuda:0 (round
+   trip, container equal to the native encoder's blocks); then on the
+   128 MiB gif7 image data of phase 4 and a 32 MiB fixed-12 one, encode
+   and each decode route once, the peak memory statistics reset before
+   each: its ``RunMetrics`` JSON and its peak from
+   ``device_memory_report()`` (which must lie in (0, bytes_limit]) beside
+   the peak that ``predicted_peaks`` works out from the allocations; the
+   gif7 encode and device-route decode under ``trace``, each trace read
+   back and required to hold the device events of the operation's
+   kernels, and their device-kernel time beside the wall time.
 
 Phases 1-8 run on cuda:0.  Each timing of the encode-parse and pass-1
 kernels also prints their chains in flight (CTAs per SM from the occupancy
@@ -99,6 +110,7 @@ import hashlib
 import json
 import pathlib
 import sys
+import tempfile
 import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -1279,6 +1291,190 @@ def run_entry() -> list[dict]:
     return [l_entry, l_dry]
 
 
+def run_examples(tokyo: bytes) -> list[dict]:
+    """Phase 13a: the two examples in-process, ``usage`` against the golden
+    file and ``compress_image_data`` on cuda:0 with its round trip, its
+    container equal to the native encoder's blocks.  Returns the launch
+    counts of the second."""
+    from lzw_tpu_torch import LzwSpec
+    from lzw_tpu_torch.examples import compress_image_data, usage
+    from lzw_tpu_torch.native.runtime import get_runtime
+    from lzw_tpu_torch.parallel import framing
+
+    n_lorem, n_golden = usage.run()
+    _, out, launches = timed_run(
+        lambda: compress_image_data.run(tokyo, "cuda:0"),
+        {"encode_parse": 1, "decode_pass1": 1, "decode_pass2": 1},
+        "compress_image_data")
+    spec = LzwSpec.gif(7)
+    native = framing.pack_frame(spec, out.block_size, len(tokyo),
+                                get_runtime().encode_blocks(
+                                    tokyo, spec, out.block_size))
+    if out.container != native:
+        raise AssertionError("compress_image_data: container differs from "
+                             "the native encoder's blocks")
+    say("examples", f"usage: {n_lorem} -> {n_golden} B == the golden file, "
+        f"round trip exact; compress_image_data on cuda:0: {len(tokyo)} "
+        f"pixels, single stream {len(out.single)} B, container "
+        f"{len(out.container)} B ({out.n_devices} device, {out.block_size} "
+        f"B blocks) == native blocks, round trip exact, launches {launches}")
+    return [launches]
+
+
+def predicted_peaks(spec, block: int, container: bytes) -> dict[str, int]:
+    """Device bytes each operation adds at its peak, from the tensors that
+    ``parallel/block.py`` and the kernels' wrappers hold at once; N blocks
+    of B bytes, S the longest block's codes, P its payload bytes.
+
+    Variable encode: blocks u8 NB and the parse's dense i32 N(B+1) stay
+    while ``schedule.pack_variable`` scatters the data codes into its
+    i64 N(Pe+3) buffer (Pe the packed width): the codes as i64 and, in
+    ``_scatter_symbols``' lane loop, the byte offsets, shifts and shifted
+    codes plus three temporaries, seven i64 [N, S] in all.  Variable
+    decode, every route: ``schedule.unpack_variable_device`` holds the
+    payloads u8 NP, their i64 copy N(W+4) (W = max(P, the last code's
+    byte + 3)), three gathered i64 [N, S] and three temporaries of
+    the OR; pass 1 and the walk need less (dense, words, rows, ends i32
+    [N, S] and the output).  Fixed encode: ``encode.pack12`` on the dense
+    codes (N(B+1) i32, one zero column added by a copy) holds three i32
+    byte planes and their stack (each [N, (B+2)/2, 3]) and the u8 result.
+    Fixed decode: ``decode.unpack12`` holds the payloads u8 NP, their i32
+    copy and 8/3 NP i32 of codes and temporaries (10.33 NP in all); the
+    device route's walk holds the payloads, codes, words, pair rows and
+    ends (8/3 NP each) and the flat output."""
+    import numpy as np
+
+    from lzw_tpu_torch.kernels.decode import prepare_variable_decode
+    from lzw_tpu_torch.kernels.schedule import emission_schedule
+    from lzw_tpu_torch.parallel import framing
+
+    header, payloads = framing.parse_frame(container)
+    n, size = len(payloads), header.orig_size
+    p = max(len(x) for x in payloads)
+    if spec.variable:
+        mat = np.zeros((n, p), np.uint8)
+        plens = np.array([len(x) for x in payloads], np.int32)
+        for i, x in enumerate(payloads):
+            mat[i, : len(x)] = np.frombuffer(x, np.uint8)
+        s = prepare_variable_decode(mat, plens, spec)[3]
+        sched = emission_schedule(spec, s)
+        pe = (sched.total_bits(s) + 7) // 8 + 16
+        w = max(p, int(sched.bit_off[s - 1] >> 3) + 3) + 4
+        dec = n * p + 8 * n * w + 48 * n * s
+        return {"encode": n * block + 4 * n * (block + 1)
+                + 8 * n * (pe + 3) + 56 * n * s,
+                "decode host": dec, "decode device": dec,
+                "decode auto": dec}
+    pf = (p + 2) // 3 * 3
+    half = n * (block + 2) // 2  # codes in a pack12 byte plane
+    host = round(n * pf * (5 + 16 / 3))
+    device = max(host, round(n * pf * (1 + 4 * 8 / 3)) + size)
+    return {"encode": n * block + 4 * n * (block + 1) + 4 * n * (block + 2)
+            + 4 * 3 * half + 4 * 3 * half + 3 * half,
+            "decode host": host, "decode device": device,
+            "decode auto": device}
+
+
+def run_memory(spec, data: bytes, block: int, label: str, smi: str,
+               trace_dir: pathlib.Path | None = None) -> list[dict]:
+    """Phase 13b: encode, then decode by ``pass2="host"``, ``"device"`` and
+    ``"auto"``, each once on cuda:0 with the peak memory statistics reset
+    just before it; prints each run's ``RunMetrics`` JSON and its peak
+    from ``device_memory_report()`` beside the prediction.  With
+    ``trace_dir`` the encode and the device-route decode each run under
+    ``trace`` into a directory of their own, and each trace must hold the
+    device events of its kernels.  Returns the launch counts."""
+    import torch
+
+    from lzw_tpu_torch import BlockParallelCodec
+    from lzw_tpu_torch.utils.profiling import (
+        RunMetrics, device_memory_report, trace,
+    )
+
+    device_route = {"decode_pass1": 1, "word_ends": 1, "decode_pass2": 1,
+                    "apply_words": 0, "decode_blocks": 0}
+    runs = (("encode", "auto", {"encode_parse": 1},
+             ("encode_parse_kernel",)),
+            ("decode host", "host", {"decode_pass1": 1, "apply_words": 1,
+                                     "decode_pass2": 0}, None),
+            ("decode device", "device", device_route,
+             ("decode_pass1_kernel", "word_ends_kernel",
+              "decode_pass2_kernel")),
+            ("decode auto", "auto", device_route, None))
+    mib = len(data) / MiB
+    container, predicted, launches = None, None, []
+    for op, route, expect, kernels in runs:
+        codec = BlockParallelCodec(spec, block_size=block, device="cuda:0",
+                                   pass2=route)
+
+        def fn():
+            if op == "encode":
+                return codec.encode(data)
+            return codec.decode(container)
+
+        traced = trace_dir is not None and kernels is not None
+        where = None if not traced else trace_dir / op.replace(" ", "_")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = device_memory_report()["cuda:0"]["bytes_in_use"]
+        if traced:
+            with trace(where):
+                dt, out, lc = timed_run(fn, expect, f"{label} {op}")
+        else:
+            dt, out, lc = timed_run(fn, expect, f"{label} {op}")
+        mem = device_memory_report()["cuda:0"]
+        launches.append(lc)
+        if op == "encode":
+            container = out
+            predicted = predicted_peaks(spec, block, container)
+            metrics = RunMetrics("encode", label, len(data), len(out), dt,
+                                 -(-len(data) // block))
+        else:
+            if out != data:
+                raise AssertionError(f"{label} {op}: round trip differs")
+            metrics = RunMetrics("decode", label, len(container), len(out),
+                                 dt, -(-len(data) // block))
+        peak = mem["peak_bytes_in_use"]
+        if not 0 < peak <= mem["bytes_limit"]:
+            raise AssertionError(
+                f"{label} {op}: peak {peak} B outside (0, "
+                f"{mem['bytes_limit']}]")
+        say("memory", f"{label} {mib:.0f} MiB {op}"
+            f"{' (traced)' if traced else ''}: {metrics.to_json()}; "
+            f"cuda:0 peak {peak / MiB:.1f} MiB (in use before "
+            f"{before / MiB:.1f}, after {mem['bytes_in_use'] / MiB:.1f}; "
+            f"the operation's own {(peak - before) / MiB:.1f}, predicted "
+            f"{predicted[op] / MiB:.1f}); bytes_limit "
+            f"{mem['bytes_limit'] / MiB:.1f} MiB; {smi}")
+        if traced:
+            trace_line(label, op, where, kernels, dt)
+    return launches
+
+
+def trace_line(label: str, op: str, where: pathlib.Path, kernels, dt: float):
+    """Read the one trace file in ``where`` back; fail unless it holds a
+    device kernel event named after each of ``kernels``; print the
+    trace's total device-kernel time beside the operation's wall time."""
+    files = list(where.glob("*.pt.trace.json"))
+    if len(files) != 1:
+        raise AssertionError(f"{label} {op}: {len(files)} trace files in "
+                             f"{where}")
+    events = json.loads(files[0].read_text())["traceEvents"]
+    on_device = [e for e in events if e.get("cat") == "kernel"]
+    missing = [k for k in kernels
+               if not any(k in e.get("name", "") for e in on_device)]
+    if missing:
+        raise AssertionError(f"{label} {op}: the trace has no device event "
+                             f"of {missing}")
+    busy = sum(float(e.get("dur", 0)) for e in on_device) / 1e3
+    say("trace", f"{label} {op}: {files[0].stat().st_size / MiB:.1f} MiB "
+        f"trace, {len(on_device)} device kernel events, of them "
+        + ", ".join(f"{k} {sum(k in e.get('name', '') for e in on_device)}"
+                    for k in kernels)
+        + f"; device-kernel time {busy:.2f} ms of {dt * 1e3:.1f} ms wall "
+        f"({busy / (dt * 1e3):.3f})")
+
+
 def main() -> int:
     if not (ROOT / "lzw_tpu_torch").is_dir():
         print("chip_smoke.py: lzw_tpu_torch/ not found beside the script; "
@@ -1410,6 +1606,16 @@ def main() -> int:
 
     # 12. The entry module.
     add(run_entry())
+
+    # 13. The examples, then the memory report and the trace on the phase-4
+    # image data and a fixed-12 container.
+    add(run_examples(tokyo))
+    with tempfile.TemporaryDirectory() as tmp:
+        add(run_memory(gif7, image, 1 << 16, "gif7 image", smi,
+                       pathlib.Path(tmp)))
+    del image
+    add(run_memory(fixed, tile(tokyo, 32 * MiB), 1 << 12, "fixed-12 image",
+                   smi))
 
     kernels = []
     for name, (src, rep) in KERNEL_SOURCES.items():

@@ -6,11 +6,14 @@ helpers that several kernels include.  On first CUDA use a kernel is
 compiled for Hopper::
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-         -Xcompiler -fPIC -o build/lib<name>.so csrc/<name>.cu
+         -Xcompiler -fPIC -o build/lib<name>-<key>.so csrc/<name>.cu
 
-into ``lzw_tpu_torch/kernels/build/`` and loaded with ctypes.  Nothing here
-runs at import time.  A missing ``nvcc`` or a failed build raises: there is
-no fallback to the plain versions for CUDA tensors.
+into ``lzw_tpu_torch/kernels/build/`` and loaded with ctypes.  The key
+(:mod:`lzw_tpu_torch.utils.cache`) covers the ``.cu``, every ``.cuh``, the
+command line and ``nvcc --version``: a library is reused only when its key
+matches.  Nothing here runs at import time.  A missing ``nvcc`` or a
+failed build raises: there is no fallback to the plain versions for CUDA
+tensors.
 
 Every wrapper adds one to its kernel's count in :data:`LAUNCHES` where it
 launches the kernel, so a run can show that its main path went through the
@@ -26,8 +29,9 @@ import os
 import pathlib
 import shutil
 import subprocess
-import tempfile
 import threading
+
+from lzw_tpu_torch.utils import cache
 
 __all__ = ["KERNELS", "LAUNCHES", "BuildError", "find_nvcc", "load",
            "reset_counts", "check_launch", "require_tensor"]
@@ -75,27 +79,15 @@ def find_nvcc() -> str:
 
 def _compile(name: str) -> pathlib.Path:
     src = CSRC / f"{name}.cu"
-    lib = BUILD_DIR / f"lib{name}.so"
-    newest = max(f.stat().st_mtime for f in (src, *CSRC.glob("*.cuh")))
-    if lib.exists() and lib.stat().st_mtime >= newest:
-        return lib
-    nvcc = find_nvcc()
-    BUILD_DIR.mkdir(exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, str(src)]
+    command = [find_nvcc(), *NVCC_FLAGS, "-o", cache.OUT, str(src)]
     try:
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        if res.returncode != 0:
-            raise BuildError(
-                f"nvcc failed for {src.name} (rc {res.returncode}):\n"
-                f"{res.stdout}{res.stderr}"
-            )
-        os.replace(tmp, lib)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return lib
+        return cache.keyed_build(BUILD_DIR, name,
+                                 [src, *CSRC.glob("*.cuh")], command)
+    except subprocess.CalledProcessError as exc:
+        raise BuildError(
+            f"nvcc failed for {src.name} (rc {exc.returncode}):\n"
+            f"{exc.stdout}{exc.stderr}"
+        ) from exc
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -16,7 +16,6 @@ import ctypes
 import os
 import pathlib
 import subprocess
-import tempfile
 import threading
 
 import numpy as np
@@ -30,13 +29,15 @@ from lzw_tpu_torch.spec import (
     TruncatedStreamError,
     UnexpectedCodeError,
 )
+from lzw_tpu_torch.utils import cache
 
 __all__ = ["NativeRuntime", "get_runtime", "native_available", "SOURCE"]
 
 _HERE = pathlib.Path(__file__).resolve().parent
 SOURCE = _HERE / "lzw_native.cpp"
 _BUILD_DIR = _HERE / "build"
-_LIB = _BUILD_DIR / "liblzw_native.so"
+# The library that build() gave last.
+_LIB: pathlib.Path | None = None
 
 _OK = 0
 _ERR_BUF = -1
@@ -58,29 +59,26 @@ _ip = ctypes.POINTER(ctypes.c_int)
 
 
 def build() -> pathlib.Path:
-    """Compile the shared library if missing or older than its source.
+    """Compile the shared library unless a library of its build key exists.
 
-    The library is written under a temporary name and renamed into place,
-    so concurrent first uses (test workers) never load a half-written file.
+    The library is ``build/liblzw_native-<key>.so``, the key covering the
+    source, the command line, the compiler's version and, for
+    ``-march=native``, the host CPU (:mod:`lzw_tpu_torch.utils.cache`); a
+    library built for another CPU is never loaded.  It is written under a
+    temporary name and renamed into place, so concurrent first uses (test
+    workers) never load a half-written file.  :data:`_LIB` becomes its
+    path.
     """
+    global _LIB
     if not SOURCE.exists():
         raise FileNotFoundError(f"native runtime source missing: {SOURCE}")
-    _BUILD_DIR.mkdir(exist_ok=True)
-    if _LIB.exists() and _LIB.stat().st_mtime >= SOURCE.stat().st_mtime:
-        return _LIB
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
-    os.close(fd)
     cmd = [
         os.environ.get("CXX", "g++"),
         "-O3", "-march=native", "-std=c++17", "-fPIC", "-shared", "-pthread",
-        str(SOURCE), "-o", tmp,
+        str(SOURCE), "-o", cache.OUT,
     ]
-    try:
-        subprocess.run(cmd, check=True, capture_output=True, text=True)
-        os.replace(tmp, _LIB)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+    _LIB = cache.keyed_build(_BUILD_DIR, "lzw_native", [SOURCE], cmd,
+                             native_cpu=True)
     return _LIB
 
 

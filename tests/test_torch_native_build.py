@@ -91,7 +91,10 @@ def test_both_native_libraries_build_and_load(lorem_ipsum):
     jax_rt = jax_runtime.get_runtime()
     torch_rt = torch_runtime.get_runtime()
     assert jax_runtime._LIB.is_file()
+    # The port names its library by its build key (lzw_tpu_torch.utils.cache).
     assert torch_runtime._LIB.is_file()
+    assert torch_runtime._LIB.parent == torch_runtime._BUILD_DIR
+    assert torch_runtime._LIB.name.startswith("liblzw_native-")
     data = lorem_ipsum[:4000]
     payload = jax_rt.encode(data, JSpec.gif(7))
     assert torch_rt.decode(payload, LzwSpec.gif(7)) == data
