@@ -8,7 +8,7 @@ Run from the repository root, with no arguments::
 Phases, one line each, any failure exits non-zero:
 
 1. device: the CUDA card's name and ``nvidia-smi`` name and power limit;
-2. build: compiles the nine CUDA kernels from
+2. build: compiles the eleven CUDA kernels from
    ``lzw_tpu_torch/kernels/csrc`` (nvcc, sm_90a) and the native runtime
    from ``lzw_tpu_torch/native``, all at once;
 3. kernel vs plain: the encode-parse kernel, pass 1 with its stride-2 and
@@ -85,7 +85,22 @@ Phases, one line each, any failure exits non-zero:
    the peak that ``predicted_peaks`` works out from the allocations; the
    gif7 encode and device-route decode under ``trace``, each trace read
    back and required to hold the device events of the operation's
-   kernels, and their device-kernel time beside the wall time.
+   kernels, and their device-kernel time beside the wall time;
+14. the single-stream codec on the card (``lzw_tpu_torch.ops``): the
+   ``"torch"`` facades on cuda:0 (gif7, TIFF, fixed-12 of both
+   endiannesses) on 16 MiB of the image plane, encode bytes equal to the
+   ``"native"`` backend's, decode and stream round trips exact, the
+   golden file both ways, the error streams raising native's class and
+   code; a gif7 container of 1 MiB blocks and a TIFF one of 256 KiB
+   blocks, each on 32 MiB of the image plane, encoded on the card and
+   decoded with ``pass2="device"`` (the kernels ``stream_pass1`` and
+   ``stream_pass2``, no native call): equal to the input and to native
+   ``decode_blocks``,
+   MiB/s of each and the decode's peak memory beside ``stream_peak``;
+   then both kernels against their plain versions at the shapes these
+   runs gave them (each container's payload rows, each facade's 16 MiB
+   stream; the plain pass 1 on a pool of processes), every output array
+   exact, with ns a code of pass 1.
 
 Phases 1-8 run on cuda:0.  Each timing of the encode-parse and pass-1
 kernels also prints their chains in flight (CTAs per SM from the occupancy
@@ -145,6 +160,14 @@ KERNEL_SOURCES = {
     "decode_pass2_stride1": (
         "lzw_tpu_torch/kernels/csrc/decode_pass2_stride1.cu",
         "lzw_tpu/kernels/decode_pallas.py:1085"),
+    # No TPU kernel: the two lax.while_loops of the JAX package's XLA
+    # single-stream decoder (phase 14).
+    "stream_pass1": ("lzw_tpu_torch/kernels/csrc/stream_pass1.cu",
+                     "lzw_tpu/ops/decode.py:68 (no pallas_call: the XLA "
+                     "codec's lax.while_loop over codes, :266)"),
+    "stream_pass2": ("lzw_tpu_torch/kernels/csrc/stream_pass2.cu",
+                     "lzw_tpu/ops/decode.py:284 (no pallas_call: the XLA "
+                     "codec's lax.while_loop over word rounds, :327)"),
     # The probes of the JAX package's scripts (phase 8).
     "ablate_parse": ("lzw_tpu_torch/kernels/csrc/ablate_parse.cu",
                      "scripts/ablate_kernel.py:25 (P1a), :120 (P1b)"),
@@ -1475,6 +1498,360 @@ def trace_line(label: str, op: str, where: pathlib.Path, kernels, dt: float):
         f"({busy / (dt * 1e3):.3f})")
 
 
+# The reference's crafted corrupt TIFF stream (`decoder.rs:758-769`).
+CORRUPT_TIFF = bytes([0x1F, 0x40, 0x3A, 0, 0, 0, 0x44, 0, 0, 0x44, 0, 0x60,
+                      0x54])
+
+
+def stream_peak(spec, n_rows: int, m: int, out_bound: int) -> int:
+    """Device bytes of ``ops.decode.decode_block`` on ``n_rows`` rows of
+    ``m`` payload bytes: the payloads and lengths, pass 1's tables (three
+    i32 [N, G]), words (three i32 and a bool [N, S]) and per-row results,
+    pass 2's output u8 [N, out_bound] and its i64 per-row key."""
+    from lzw_tpu_torch.ops.decode import pass1_step_bound
+
+    s = pass1_step_bound(m, spec)
+    g = spec.alphabet_size + s + 2
+    return n_rows * (m + 4 + 12 * g + 13 * s + 24 + out_bound + 8)
+
+
+def error_streams(spec_var, spec_tiff) -> dict[str, tuple]:
+    """(stream, spec) of each error the facades must raise alike: a
+    truncated stream, a full table without a CLEAR, a code past the next
+    index, and the reference's corrupt TIFF vector (code 258)."""
+    from lzw_tpu_torch.ops import reference as oracle
+    from lzw_tpu_torch.spec import Endianness, LzwSpec
+
+    codes = [(0, 9)]
+    width, next_index = 9, 258
+    for _ in range(4096 - 258 + 2):
+        codes.append((1, width))
+        next_index += 1
+        if next_index == (1 << width) and width < 12:
+            width += 1
+    missing = oracle.pack_codes(codes, Endianness.LITTLE)
+    good = oracle.encode_bytes(bytes(range(128)) * 8, spec_var)
+    # gif7: CLEAR, a literal, then 200 where the next index is 130.
+    bad = oracle.pack_codes([(128, 8), (5, 8), (200, 8)], Endianness.LITTLE)
+    return {"truncated": (good[: len(good) // 2], spec_var),
+            "missing CLEAR": (missing, LzwSpec.variable(8,
+                                                        Endianness.LITTLE)),
+            "unexpected code": (bad, spec_var),
+            "corrupt TIFF": (CORRUPT_TIFF, spec_tiff)}
+
+
+def outcome(fn, *args):
+    """("ok", bytes) or (error class name, its code)."""
+    try:
+        return "ok", fn(*args)
+    except Exception as exc:  # compared by class and code
+        return type(exc).__name__, getattr(exc, "code", None)
+
+
+def run_stream_facades(image: bytes, smi: str, device,
+                       size: int = 16 * MiB) -> dict[str, tuple]:
+    """Phase 14a: the ``"torch"`` facades on ``device`` against
+    ``"native"`` on ``size`` bytes (16 MiB) of the image plane (encode
+    bytes equal, decode and stream round trips exact), the golden file
+    both ways, the error streams (the same class and code as native), and
+    each decode's peak memory beside :func:`stream_peak`.  Returns
+    {flavor: (spec, encoded stream)}."""
+    import io
+
+    import torch
+
+    from lzw_tpu_torch import (
+        Endianness, FixedCodec, GifCodec, LzwCodec, LzwSpec, TiffCodec,
+    )
+
+    lorem = (ROOT / "test-assets" / "lorem_ipsum.txt").read_bytes()
+    golden = (ROOT / "test-assets" / "lorem_ipsum_encoded.bin").read_bytes()
+    card = GifCodec(7, backend="torch", device=device)
+    if card.encode(lorem) != golden or card.decode(golden) != lorem:
+        raise AssertionError("torch GifCodec(7) does not give the golden "
+                             "file back")
+    data = image[:size]
+    mib = len(data) / MiB
+    rates, streams = [], {}
+    for label, make in (
+            ("gif7", lambda b, **kw: GifCodec(7, backend=b, **kw)),
+            ("tiff", lambda b, **kw: TiffCodec(backend=b, **kw)),
+            ("fixed-12 LE", lambda b, **kw: FixedCodec(
+                Endianness.LITTLE, backend=b, **kw)),
+            ("fixed-12 BE", lambda b, **kw: FixedCodec(
+                Endianness.BIG, backend=b, **kw))):
+        codec, native = make("torch", device=device), make("native")
+        t = {}
+
+        def timed(name, fn):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            t[name] = time.perf_counter() - t0
+            return out
+
+        enc = timed("encode", lambda: codec.encode(data))
+        if enc != native.encode(data):
+            raise AssertionError(f"torch facade {label}: bytes != native")
+        streams[label] = (codec.spec, enc)
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        dec = timed("decode", lambda: codec.decode(enc))
+        peak = torch.cuda.max_memory_allocated() - before
+        dst = io.BytesIO()
+        timed("encode_stream", lambda: codec.encode_stream(io.BytesIO(data),
+                                                           dst))
+        out = io.BytesIO()
+        timed("decode_stream", lambda: codec.decode_stream(
+            io.BytesIO(dst.getvalue()), out))
+        if dec != data or dst.getvalue() != enc or out.getvalue() != data:
+            raise AssertionError(f"torch facade {label}: a round trip "
+                                 "differs")
+        t0 = time.perf_counter()
+        native.decode(enc)
+        native_s = time.perf_counter() - t0
+        rates.append(
+            f"{label} (ratio {len(enc) / len(data):.4f}) "
+            + ", ".join(f"{k} {mib / v:.2f}" for k, v in t.items())
+            + f"; native decode {mib / native_s:.1f}; decode peak "
+            f"{peak / MiB:.1f} MiB (predicted "
+            f"{stream_peak(codec.spec, 1, len(enc), len(data)) / MiB:.1f})")
+    errors = []
+    for label, (stream, spec) in error_streams(LzwSpec.gif(7),
+                                               LzwSpec.tiff()).items():
+        got = outcome(LzwCodec(spec, "torch", device).decode, stream)
+        want = outcome(LzwCodec(spec, "native").decode, stream)
+        if got != want or got[0] == "ok":
+            raise AssertionError(f"torch facade, {label}: {got} != native "
+                                 f"{want}")
+        errors.append(f"{label} {got[0]}" + (
+            "" if got[1] is None else f" {got[1]}"))
+    say("stream", f"torch facades on {device}: GifCodec(7) == the golden file "
+        "both ways; bytes == native, bytes and stream round trips exact "
+        f"on {mib:.0f} MiB; errors as native: {', '.join(errors)}; MiB/s: "
+        + "; ".join(rates) + f"; {smi}")
+    return streams
+
+
+def run_stream_container(spec, data: bytes, block: int, label: str,
+                         smi: str, device) -> tuple[list[dict], list[bytes]]:
+    """Phase 14b: a container of blocks past ``MAX_BLOCK`` encoded on
+    ``device`` (payloads == the native encoder's) and decoded with
+    ``pass2="device"`` (the single-stream kernels, no native call): ==
+    the input and == native ``decode_blocks``; MiB/s of each and the
+    decode's peak memory beside :func:`stream_peak`.  Returns the launch
+    counts of the encode and the decode, and the payloads."""
+    import torch
+
+    from lzw_tpu_torch import BlockParallelCodec
+    from lzw_tpu_torch.native.runtime import get_runtime
+    from lzw_tpu_torch.parallel import framing
+
+    mib = len(data) / MiB
+    rt = get_runtime()
+    enc_s, container, l_enc = timed_run(
+        lambda: BlockParallelCodec(spec, block_size=block,
+                                   device=device).encode(data),
+        {"encode_parse": 1}, f"{label} encode")
+    _, payloads = framing.parse_frame(container)
+    payloads = [bytes(p) for p in payloads]
+    if payloads != rt.encode_blocks(data, spec, block):
+        raise AssertionError(f"{label}: payloads != native encode_blocks")
+    codec = BlockParallelCodec(spec, block_size=block, device=device,
+                               pass2="device")
+    codec.decode(container)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    dec_s, out, l_dec = timed_run(
+        lambda: codec.decode(container),
+        {"stream_pass1": 1, "stream_pass2": 1, "decode_blocks": 0,
+         "apply_words": 0, "decode_pass1": 0}, f"{label} decode")
+    peak = torch.cuda.max_memory_allocated() - before
+    stages = {}
+    BlockParallelCodec(spec, block_size=block, device=device, pass2="device",
+                       stage_times=stages).decode(container)
+    t0 = time.perf_counter()
+    native = rt.decode_blocks(payloads, spec, block)
+    native_s = time.perf_counter() - t0
+    if out != data or native != data:
+        raise AssertionError(f"{label}: decode != input or native")
+    m = max(len(p) for p in payloads)
+    say("stream", f"{label}: {len(payloads)} blocks of {block} B past "
+        f"MAX_BLOCK, longest payload {m} B; encode on {device} "
+        f"{mib / enc_s:.1f} MiB/s (payloads == native encode_blocks); "
+        f"pass2='device' decode {mib / dec_s:.1f} MiB/s == input == native "
+        f"decode_blocks ({mib / native_s:.1f} MiB/s), no native call, "
+        f"launches {l_dec}; decode peak {peak / MiB:.1f} MiB (predicted "
+        f"{stream_peak(spec, len(payloads), m, block) / MiB:.1f}); {smi}")
+    stage_line(label, "pass2='device' decode", stages, mib)
+    return [l_enc, l_dec], payloads
+
+
+def stream_rows(streams: list[bytes]):
+    """u8[N, M] rows (M the longest stream) and i32[N] lengths, as the
+    facade (N = 1) and the container's big-block decode lay them out."""
+    import numpy as np
+
+    mat = np.zeros((len(streams), max(max(map(len, streams)), 1)), np.uint8)
+    for i, s in enumerate(streams):
+        mat[i, : len(s)] = np.frombuffer(s, np.uint8)
+    return mat, np.array([len(s) for s in streams], np.int32)
+
+
+def _plain_pass1_part(mat, lens, spec):
+    """The plain pass 1 of some rows in a worker process: (its outputs as
+    numpy arrays, seconds)."""
+    import torch
+
+    from lzw_tpu_torch.ops import decode as sdec
+
+    t0 = time.perf_counter()
+    out = sdec.decode_pass1(torch.from_numpy(mat), torch.from_numpy(lens),
+                            spec)
+    return {k: v.numpy() for k, v in out.items()}, time.perf_counter() - t0
+
+
+class PlainPass1:
+    """The plain pass 1 of a batch of rows, its rows split over the
+    processes of ``pool`` (the rows are independent and the plain version
+    loops over them).  :meth:`result` joins the parts in row order and
+    gives (outputs as CPU tensors, milliseconds summed over the parts: the
+    time of one call on all rows, less its per-call overhead)."""
+
+    def __init__(self, pool, spec, mat, lens, parts: int):
+        import numpy as np
+
+        cuts = np.linspace(0, len(lens), min(parts, len(lens)) + 1)
+        cuts = cuts.astype(int)
+        self.futures = [pool.submit(_plain_pass1_part, mat[a:b], lens[a:b],
+                                    spec)
+                        for a, b in zip(cuts[:-1], cuts[1:])]
+
+    def result(self):
+        import numpy as np
+        import torch
+
+        parts = [f.result() for f in self.futures]
+        out = {k: torch.from_numpy(np.concatenate([p[k] for p, _ in parts]))
+               for k in parts[0][0]}
+        return out, sum(dt for _, dt in parts) * 1e3
+
+
+def compare_stream(spec, mat, lens, plain: PlainPass1, label: str, device,
+                   out_bound: int | None = None, reps: int = 3):
+    """``stream_pass1`` and ``stream_pass2`` against their plain versions
+    on the same rows on the card, every output array exact; pass 2 with
+    ``out_bound`` (the container's block) or, as the facade calls it, the
+    longest decoded row.  ``reps`` timed launches of each after a warm-up,
+    or with 0 the compared launch of pass 1 timed alone (a facade stream
+    takes about a second).  Returns {kernel: Result}.  Bounds, in bytes:
+    pass 1 reads the valid payload bytes and writes its tables (three i32
+    [N, G]), words (three i32 and a bool [N, S]) and per-row results;
+    pass 2 reads the tables and words and writes the output u8 [N,
+    out_bound] and two i32 per row."""
+    import torch
+
+    from lzw_tpu_torch.ops import decode as sdec
+    from lzw_tpu_torch.utils.card import cuda_ms
+
+    rows = torch.from_numpy(mat).to(device)
+    lens_t = torch.from_numpy(lens).to(device)
+    n = len(lens)
+    ms1, got = once_ms(lambda: sdec.decode_pass1(rows, lens_t, spec))
+    if reps:
+        ms1 = cuda_ms(lambda: sdec.decode_pass1(rows, lens_t, spec), reps)
+    want, plain_ms = plain.result()
+    keys = list(want)
+    err1 = max_abs_err([got[k] for k in keys], [want[k] for k in keys])
+    g_cols = got["gprefix"].shape[1]
+    s_cols = got["out_g"].shape[1]
+    res = {"stream_pass1": result(
+        err1, ms1, plain_ms, int(lens.sum()) + n * (12 * g_cols
+                                                    + 13 * s_cols + 24), 0)}
+    if out_bound is None:
+        out_bound = max(int(got["total_len"].max()), 1)
+    args = [got[k] for k in sdec.PASS2_KEYS] + [out_bound, spec.alphabet_size]
+    out = sdec.decode_pass2(*args)
+    plain_ms, ref = once_ms(lambda: sdec.decode_pass2_reference(*args))
+    err2 = max_abs_err(out, ref)
+    ms2 = cuda_ms(lambda: sdec.decode_pass2(*args), max(reps, 1))
+    res["stream_pass2"] = result(
+        err2, ms2, plain_ms, n * (12 * g_cols + 13 * s_cols + out_bound + 8),
+        0)
+    if err1 or err2:
+        raise AssertionError(f"{label}: stream kernels != plain, "
+                             f"max_abs_err {err1}, {err2}")
+    if int(got["error"].abs().sum()) or int(out[1].ne(
+            sdec.NO_ERROR_STEP).sum()):
+        raise AssertionError(f"{label}: unexpected decode errors")
+    longest = int(got["n_words"].max())
+    decoded = int(got["total_len"].sum())
+    say("stream", f"{label}: N={n} rows of {mat.shape[1]} B, longest "
+        f"{longest} codes; " + kernel_times(res)
+        + f"; stream_pass1 {ms1 * 1e6 / longest:.1f} ns a code, "
+        f"{decoded / MiB / ms1 * 1e3:.1f} MiB/s of output; stream_pass2 "
+        f"{decoded / MiB / ms2 * 1e3:.1f} MiB/s; kernel == plain exactly")
+    return res
+
+
+def run_stream(image: bytes, smi: str, device, facade: int = 16 * MiB,
+               depth: int = 32 * MiB, big: int = 1 << 20):
+    """Phase 14: the single-stream codec on ``device``: the facades on
+    ``facade`` bytes of ``image``, gif7 blocks of ``big`` bytes and TIFF
+    blocks of ``big / 4`` over ``depth`` bytes of it (32 MiB, which keeps
+    the whole script near 500 s); then both kernels against their plain
+    versions at those shapes: each facade's stream and each container's
+    payload rows, the plain pass 1 spread over a pool of processes.
+    Returns (launch counts of its main-path runs, {kernel: Result} at the
+    gif7 container's shape)."""
+    import multiprocessing
+    import os
+    from concurrent.futures import ProcessPoolExecutor
+
+    from lzw_tpu_torch import LzwSpec
+
+    _, streams, l_fac = timed_run(
+        lambda: run_stream_facades(image, smi, device, facade),
+        {"encode_parse": 1, "stream_pass1": 1, "stream_pass2": 1,
+         "decode_pass1": 0, "decode_blocks": 0, "apply_words": 0},
+        "torch facades")
+    launches = [l_fac]
+    batches = {}
+    for spec, block, label in (
+            (LzwSpec.gif(7), big, f"gif7 image {big >> 10} KiB blocks"),
+            (LzwSpec.tiff(), big // 4, f"tiff image {big >> 12} KiB blocks")):
+        runs, payloads = run_stream_container(spec, image[:depth], block,
+                                              label, smi, device)
+        launches += runs
+        batches[f"{label} container rows"] = (spec, payloads, block)
+    for label, (spec, enc) in streams.items():
+        batches[f"{label} {facade >> 20} MiB facade stream"] = (spec, [enc],
+                                                                None)
+    workers = min(os.cpu_count() or 1, 8)
+    t0 = time.perf_counter()
+    with ProcessPoolExecutor(
+            workers, mp_context=multiprocessing.get_context("spawn")) as pool:
+        # The single-row facade streams first: they take longest.
+        jobs = {}
+        for label in sorted(batches, key=lambda k: len(batches[k][1])):
+            spec, rows, _ = batches[label]
+            mat, lens = stream_rows(rows)
+            jobs[label] = (mat, lens, PlainPass1(pool, spec, mat, lens,
+                                                 workers))
+        full = None
+        for label, (spec, _, block) in batches.items():
+            mat, lens, plain = jobs[label]
+            res = compare_stream(spec, mat, lens, plain, label, device,
+                                 block, reps=3 if block else 0)
+            full = full or res
+    say("stream", f"kernels vs plain at the main path's shapes: "
+        f"{time.perf_counter() - t0:.1f} s, plain pass 1 on {workers} "
+        "processes")
+    return launches, full
+
+
 def main() -> int:
     if not (ROOT / "lzw_tpu_torch").is_dir():
         print("chip_smoke.py: lzw_tpu_torch/ not found beside the script; "
@@ -1602,7 +1979,8 @@ def main() -> int:
     # 11. The single-stream facades (host runtime; no kernel may launch).
     timed_run(lambda: run_facades(image),
               {"encode_parse": 0, "decode_pass1": 0, "word_ends": 0,
-               "decode_pass2": 0}, "facades")
+               "decode_pass2": 0, "stream_pass1": 0, "stream_pass2": 0},
+              "facades")
 
     # 12. The entry module.
     add(run_entry())
@@ -1613,9 +1991,17 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         add(run_memory(gif7, image, 1 << 16, "gif7 image", smi,
                        pathlib.Path(tmp)))
-    del image
     add(run_memory(fixed, tile(tokyo, 32 * MiB), 1 << 12, "fixed-12 image",
                    smi))
+
+    # 14. The single-stream codec on the card: the "torch" facades, big
+    # blocks through pass2="device", the stream kernels against plain.
+    t14 = time.perf_counter()
+    launches, stream = run_stream(image, smi, device)
+    say("stream", f"phase 14: {time.perf_counter() - t14:.1f} s")
+    add(launches)
+    full.update(stream)
+    del image
 
     kernels = []
     for name, (src, rep) in KERNEL_SOURCES.items():

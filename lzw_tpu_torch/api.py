@@ -12,13 +12,16 @@ Each facade produces and consumes the raw single-stream wire format,
 byte-identical to the reference and to the JAX package.  Block-parallel
 work on the card is :class:`lzw_tpu_torch.parallel.BlockParallelCodec`.
 
-A single stream is one sequential chain, so the facades run on the host,
-as in the JAX package, whose ``"auto"`` is the native runtime too.
-Backends: ``"native"`` (the C++ runtime, truly streaming), ``"oracle"``
-(the scalar Python oracle, :mod:`lzw_tpu_torch.ops.reference`), and
-``"auto"``: native when it builds, else the oracle.  The JAX package's
-``"jax"`` backend is its XLA lax codec, which the port does not port: the
-oracle takes its place as the backend that runs wherever Python does.
+Backends: ``"native"`` (the C++ runtime on the host, truly streaming),
+``"oracle"`` (the scalar Python oracle, :mod:`lzw_tpu_torch.ops.reference`),
+``"torch"`` (the port of the JAX package's ``"jax"`` backend, its XLA
+codec: :func:`lzw_tpu_torch.ops.encode.encode_stream_bytes` and the two
+passes of :mod:`lzw_tpu_torch.ops.decode`, on the facade's ``device``:
+the CUDA kernels on a card, their plain versions on the CPU), and
+``"auto"``: native when it builds, else the oracle.  A single stream is
+one sequential chain, so on the card it is slower than the native runtime
+on one host thread, and ``"auto"`` stays on the host, as the JAX
+package's ``"auto"`` prefers the native runtime.
 """
 
 from __future__ import annotations
@@ -26,24 +29,36 @@ from __future__ import annotations
 from typing import BinaryIO
 
 import numpy as np
+import torch
 
 from lzw_tpu_torch.native.runtime import get_runtime, native_available
+from lzw_tpu_torch.ops import decode as _decode
 from lzw_tpu_torch.ops import reference as _oracle
+from lzw_tpu_torch.ops.encode import encode_stream_bytes
 from lzw_tpu_torch.spec import CodeSizeStrategy, Endianness, LzwSpec
 
 __all__ = ["LzwCodec", "GifCodec", "TiffCodec", "FixedCodec", "VariableCodec"]
 
-BACKENDS = ("auto", "native", "oracle")
+BACKENDS = ("auto", "native", "oracle", "torch")
+# The device of the "torch" backend when the caller names none.
+DEFAULT_DEVICE = "cuda"
 
 
 class LzwCodec:
-    """Encode/decode one LZW wire format described by an :class:`LzwSpec`."""
+    """Encode/decode one LZW wire format described by an :class:`LzwSpec`.
 
-    def __init__(self, spec: LzwSpec, backend: str = "auto"):
+    ``device`` is where the ``"torch"`` backend runs (default
+    :data:`DEFAULT_DEVICE`, ``"cuda"``; ``"cpu"`` runs the kernels' plain
+    versions); the host backends ignore it.  ``"cuda"`` without a card
+    raises RuntimeError.
+    """
+
+    def __init__(self, spec: LzwSpec, backend: str = "auto",
+                 device: str | torch.device | None = None):
         if backend == "jax":
             raise ValueError(
-                "backend 'jax' is the JAX package's XLA lax codec, which "
-                "lzw_tpu_torch does not port; use 'native' or 'oracle'"
+                "backend 'jax' is the JAX package's XLA codec; its "
+                "counterpart in lzw_tpu_torch is backend 'torch'"
             )
         if backend not in BACKENDS:
             raise ValueError(f"unknown backend {backend!r}")
@@ -53,6 +68,17 @@ class LzwCodec:
             backend = "native" if native_available() else "oracle"
         if backend == "native":
             self._native = get_runtime()
+        self.device = None
+        if backend == "torch":
+            self.device = torch.device(
+                DEFAULT_DEVICE if device is None else device)
+            if self.device.type == "cuda" and not torch.cuda.is_available():
+                raise RuntimeError(
+                    "backend 'torch' on device 'cuda' needs a CUDA device, "
+                    "and torch.cuda.is_available() is false; pass "
+                    "device='cpu' to run the plain versions")
+            if self.device.type not in ("cuda", "cpu"):
+                raise ValueError(f"unsupported device {self.device}")
         self.backend = backend
 
     # ---- bytes API -----------------------------------------------------------
@@ -62,6 +88,9 @@ class LzwCodec:
         data = _as_bytes(data)
         if self.backend == "oracle":
             return _oracle.encode_bytes(data, self.spec)
+        if self.backend == "torch":
+            return encode_stream_bytes(data, self.spec, fix_eoi_width=False,
+                                       device=self.device)
         return self._native.encode(data, self.spec)
 
     def decode(self, data: bytes | bytearray | memoryview | np.ndarray) -> bytes:
@@ -69,6 +98,8 @@ class LzwCodec:
         data = _as_bytes(data)
         if self.backend == "oracle":
             return _oracle.decode_bytes(data, self.spec)
+        if self.backend == "torch":
+            return self._decode_torch(data)
         return self._native.decode(data, self.spec)
 
     # ---- stream API (reference's Read -> Write shape) ------------------------
@@ -79,7 +110,8 @@ class LzwCodec:
 
         With the native backend this is truly streaming, O(chunk) memory for
         any stream length, as the reference pulls one byte at a time from
-        ``Read`` (`encoder.rs:299,313`).  The oracle buffers.
+        ``Read`` (`encoder.rs:299,313`).  The oracle and torch backends
+        buffer (they are batch codecs by design).
         """
         if self.backend == "native":
             enc = self._native.encoder_stream(self.spec)
@@ -103,7 +135,7 @@ class LzwCodec:
         """Decompress all of ``src`` into ``dst``; returns bytes written.
 
         Native backend: incremental, emitting words as they decode with
-        bounded memory (`decoder.rs:270`).  The oracle buffers.
+        bounded memory (`decoder.rs:270`).  The others buffer.
         """
         if self.backend == "native":
             dec = self._native.decoder_stream(self.spec)
@@ -121,27 +153,46 @@ class LzwCodec:
         dst.write(out)
         return len(out)
 
+    # ---- torch path ----------------------------------------------------------
+
+    def _decode_torch(self, data: bytes) -> bytes:
+        row = np.zeros((1, max(len(data), 1)), np.uint8)
+        row[0, : len(data)] = np.frombuffer(data, np.uint8)
+        buf = torch.from_numpy(row).to(self.device)
+        n_valid = torch.tensor([len(data)], dtype=torch.int32,
+                               device=self.device)
+        res = _decode.decode_block(buf, n_valid, self.spec)
+        err, err_code, total = (
+            int(v) for v in torch.stack([
+                res["error"][0].long(), res["error_code"][0].long(),
+                res["total_len"][0]]).cpu())
+        _decode.raise_decode_error(err, err_code)
+        return res["out"][0, :total].cpu().numpy().tobytes()
+
 
 class GifCodec(LzwCodec):
     """GIF-style LZW: caller code size 2..=8, LSB-first, default strategy."""
 
-    def __init__(self, code_size: int, backend: str = "auto"):
-        super().__init__(LzwSpec.gif(code_size), backend)
+    def __init__(self, code_size: int, backend: str = "auto",
+                 device: str | torch.device | None = None):
+        super().__init__(LzwSpec.gif(code_size), backend, device)
 
 
 class TiffCodec(LzwCodec):
     """TIFF-style LZW: code size 8, MSB-first, early-change widths."""
 
-    def __init__(self, backend: str = "auto"):
-        super().__init__(LzwSpec.tiff(), backend)
+    def __init__(self, backend: str = "auto",
+                 device: str | torch.device | None = None):
+        super().__init__(LzwSpec.tiff(), backend, device)
 
 
 class FixedCodec(LzwCodec):
     """Original fixed 12-bit LZW: byte alphabet, no control codes."""
 
     def __init__(self, endianness: Endianness = Endianness.LITTLE,
-                 backend: str = "auto"):
-        super().__init__(LzwSpec.fixed(endianness), backend)
+                 backend: str = "auto",
+                 device: str | torch.device | None = None):
+        super().__init__(LzwSpec.fixed(endianness), backend, device)
 
 
 class VariableCodec(LzwCodec):
@@ -153,9 +204,10 @@ class VariableCodec(LzwCodec):
         endianness: Endianness,
         strategy: CodeSizeStrategy = CodeSizeStrategy.DEFAULT,
         backend: str = "auto",
+        device: str | torch.device | None = None,
     ):
         super().__init__(LzwSpec.variable(code_size, endianness, strategy),
-                         backend)
+                         backend, device)
 
 
 def _as_bytes(data) -> bytes:

@@ -41,6 +41,8 @@ CSRC = _HERE / "csrc"
 BUILD_DIR = _HERE / "build"
 KERNELS = ("encode_parse", "decode_pass1", "word_ends", "decode_pass2",
            "decode_pass2_stride1",
+           # The single-stream decoder of lzw_tpu_torch.ops.decode.
+           "stream_pass1", "stream_pass2",
            # The probes and ablations of the JAX package's scripts.
            "ablate_parse", "ablate_ring", "probe_scan", "probe_gather")
 DEFAULT_NVCC = "/usr/local/cuda/bin/nvcc"

@@ -48,31 +48,33 @@ class Schedule:
         self.n_max = n_max
         inc = spec.strategy.increment
         first_free = spec.first_free_code
-        widths = np.empty(n_max, np.int64)
-        clear_after = np.zeros(n_max, bool)
-        nxt_of = np.empty(n_max, np.int64)
-        epoch_start = np.empty(n_max, np.int64)
+        # Every epoch restarts at the same width and index, so one epoch's
+        # widths and indices, up to its CLEAR, repeat: walk it once, tile.
+        pat_w, pat_nxt = [], []
         width = spec.initial_width
         nxt = first_free
-        estart = 0
+        period = None
         for m in range(n_max):
-            widths[m] = width
-            nxt_of[m] = nxt
-            epoch_start[m] = estart
+            pat_w.append(width)
+            pat_nxt.append(nxt)
             new_index = nxt
             nxt += 1
             if new_index == (1 << width) - inc:
                 if width < MAX_WIDTH:
                     width += 1
                 else:
-                    clear_after[m] = True
-                    width = spec.initial_width
-                    nxt = first_free
-                    estart = m + 1
-        self.widths = widths
-        self.clear_after = clear_after
-        self.nxt_of = nxt_of
-        self.epoch_start = epoch_start
+                    period = m + 1
+                    break
+        m = np.arange(n_max, dtype=np.int64)
+        j = m if period is None else m % period
+        self.widths = np.asarray(pat_w, np.int64)[j]
+        self.nxt_of = np.asarray(pat_nxt, np.int64)[j]
+        self.clear_after = (np.zeros(n_max, bool) if period is None
+                            else j == period - 1)
+        self.epoch_start = m - j
+        if period is not None:
+            width = pat_w[n_max % period]
+        widths, clear_after = self.widths, self.clear_after
         bit_off = np.zeros(n_max + 1, np.int64)
         bit_off[1:] = np.cumsum(widths + MAX_WIDTH * clear_after)
         bit_off += spec.initial_width  # the leading CLEAR

@@ -23,6 +23,13 @@ of the payload bytes.  Decode: host count recovery -> H2D -> device unpack
 By default a CUDA codec takes the device route for strict blocks and the
 native runtime's threaded decoder for non-strict ones.
 
+Blocks past ``MAX_BLOCK`` (the descriptors' 17-bit offsets) decode with
+the native runtime's ``decode_blocks``, or, with ``pass2="device"`` or
+where the runtime cannot build, through the single-stream decoder
+(:func:`lzw_tpu_torch.ops.decode.decode_block`: its pass-1 and pass-2
+kernels over a batch of rows), one range per device, as the JAX codec
+vmaps ``decode_block`` over such blocks.
+
 Decode runs in steps with a join between them, so the result and the
 error never depend on the number of ranges or on which thread ends first:
 the count recovery of every range, then, only when every block is strict,
@@ -36,9 +43,9 @@ non-strict device route on the codec's first device.
 On a CPU device the kernels' plain versions run.
 
 Left out against the JAX codec: the padding of the batch to power-of-two
-rows and kernel groups (XLA's static shapes), the lax-codec path, and the
-TPU's "non-cell block size -> native encode" route (the CUDA kernel takes
-any block size).
+rows and kernel groups (XLA's static shapes), the lax-codec encode (the
+encode-parse kernel takes any block size), and the TPU's "non-cell block
+size -> native encode" route.
 """
 
 from __future__ import annotations
@@ -63,6 +70,7 @@ from lzw_tpu_torch.kernels.decode import (
 from lzw_tpu_torch.kernels.encode import encode_blocks_codes, pack12
 from lzw_tpu_torch.kernels.nonstrict import decode_variable_nonstrict_device
 from lzw_tpu_torch.native.runtime import NativeRuntime, get_runtime
+from lzw_tpu_torch.ops import decode as _stream
 from lzw_tpu_torch.parallel import framing
 from lzw_tpu_torch.spec import (
     Endianness,
@@ -220,7 +228,10 @@ class BlockParallelCodec:
         the runtime cannot build.  "host" forces the native runtime's
         ``apply_words`` (raises when it cannot build); "device" forces the
         pass-2 kernel for every block, strict or not, and decode never
-        touches the native runtime (block_size at most ``MAX_BLOCK``).
+        touches the native runtime.  Blocks past ``MAX_BLOCK`` take the
+        native ``decode_blocks`` with "host" and with "auto" where it
+        builds, else (and always with "device") the single-stream
+        decoder's two kernels on the devices.
     """
 
     def __init__(self, spec: LzwSpec, block_size: int | None = None,
@@ -237,11 +248,6 @@ class BlockParallelCodec:
             raise ValueError("block_size must be positive")
         if pass2 not in PASS2_ROUTES:
             raise ValueError(f"pass2 {pass2!r} is not one of {PASS2_ROUTES}")
-        if pass2 == "device" and block_size > MAX_BLOCK:
-            raise ValueError(
-                f"pass2='device' decodes blocks of at most {MAX_BLOCK} bytes, "
-                f"not {block_size}"
-            )
         self.devices = _resolve_devices(device)
         # The first device; every device of the list has its type.
         self.device = self.devices[0]
@@ -384,8 +390,7 @@ class BlockParallelCodec:
     def _verify_sample(self, data: bytes, payloads: list[bytes]) -> None:
         """Decode-check the largest payload of the batch against its source
         on the host: the native runtime, or where it cannot build, the
-        kernels' plain versions on the CPU (blocks of at most
-        ``MAX_BLOCK`` bytes; larger ones raise the build error).  Raises
+        kernels' plain versions on the CPU.  Raises
         :class:`VerificationError` on a mismatch."""
         i = max(range(len(payloads)), key=lambda k: len(payloads[k]))
         bs = self.block_size
@@ -393,8 +398,6 @@ class BlockParallelCodec:
         try:
             rt = get_runtime()
         except (OSError, subprocess.CalledProcessError):
-            if bs > MAX_BLOCK:
-                raise
             rt = None
         try:
             if rt is not None:
@@ -427,16 +430,18 @@ class BlockParallelCodec:
         if header.n_blocks == 0:
             return b""
         out = None
-        if self.block_size <= MAX_BLOCK:
-            if self.spec.variable:
-                # None: a non-strict (foreign early-CLEAR) stream.
-                out = self._decode_variable(payloads)
-                if out is None and self._native() is None:
-                    out = self._decode_variable_nonstrict(payloads)
-            else:
-                out = self._decode_fixed(payloads)
+        if self.block_size > MAX_BLOCK:
+            if self._native() is None:
+                out = self._decode_big(header, payloads)
+        elif self.spec.variable:
+            # None: a non-strict (foreign early-CLEAR) stream.
+            out = self._decode_variable(payloads)
+            if out is None and self._native() is None:
+                out = self._decode_variable_nonstrict(payloads)
+        else:
+            out = self._decode_fixed(payloads)
         if out is None:
-            # Blocks past the descriptor bound, or non-strict streams with
+            # Blocks past the descriptor bound or non-strict streams, with
             # the native runtime at hand: its threaded decoder.
             out = get_runtime().decode_blocks(
                 [bytes(p) for p in payloads], self.spec, self.block_size
@@ -551,6 +556,50 @@ class BlockParallelCodec:
                 mat, plens, self.spec, self.block_size, r.device, stage))
 
         return self._map(run, [_Range(self.device, 0, len(payloads))])[0]
+
+    def _decode_big(self, header, payloads) -> bytes:
+        """Blocks past ``MAX_BLOCK``: both passes of the single-stream
+        decoder over each range's rows on its device.  Raises the typed
+        error of the first failing block in container order, then
+        :class:`framing.FramingError` for the first block whose decoded
+        length is not the frame's."""
+        bs = self.block_size
+
+        def run(r: _Range):
+            stage = self._stage_fn(r.device)
+            sub = payloads[r.lo : r.hi]
+            with stage("dec_host_prep"):
+                mat, plens = _payload_matrix(
+                    sub, max(max(len(p) for p in sub), 1))
+            with stage("dec_h2d"):
+                mat_t = torch.from_numpy(mat).to(r.device)
+                plens_t = torch.from_numpy(plens).to(r.device)
+            with stage("dec_stream"):
+                res = _stream.decode_block(mat_t, plens_t, self.spec, bs)
+            stats = _host(torch.stack([res["error"].long(),
+                                       res["error_code"].long(),
+                                       res["total_len"]]))
+            return stats, res["out"]
+
+        ranges = self._ranges(len(payloads))
+        states = self._map(run, ranges)
+        for (errs, codes, _), _ in states:
+            if errs.any():
+                i = int(np.argmax(errs != 0))
+                _stream.raise_decode_error(int(errs[i]), int(codes[i]))
+        totals = np.concatenate([stats[2] for stats, _ in states])
+        want = np.full(len(payloads), bs, np.int64)
+        want[-1] = header.orig_size - (len(payloads) - 1) * bs
+        if (totals != want).any():
+            i = int(np.argmax(totals != want))
+            raise framing.FramingError(
+                f"block {i} decoded {int(totals[i])} bytes, the container "
+                f"gives it {int(want[i])}")
+        # Every block but the container's last is full, so a range's bytes
+        # are its rows back to back, cut at its total.
+        flats = [out.reshape(-1)[: int(stats[2].sum())]
+                 for stats, out in states]
+        return self._fetch(ranges, flats)
 
     @staticmethod
     def _raise_pass1(states) -> None:

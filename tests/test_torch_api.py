@@ -1,17 +1,22 @@
 """The port's single-stream facades against the JAX package's.
 
-Mirrors tests/test_api.py and tests/test_streaming.py for the port's two
-backends, "native" (the C++ runtime) and "oracle" (the port's copy of the
-scalar oracle): the reference's doctest vectors, the golden file, every
-error type and message, the stream API at several chunk sizes and the
-bounded decoder.  Bytes are compared exactly with ``lzw_tpu.api`` on the
-same inputs for every flavor.
+Mirrors tests/test_api.py and tests/test_streaming.py for the port's
+backends, "native" (the C++ runtime), "oracle" (the port's copy of the
+scalar oracle) and "torch" (the port of the JAX "jax" backend, here on
+``device="cpu"``: the kernels' plain versions): the reference's doctest
+vectors, the golden file, every error type and message, the stream API at
+several chunk sizes and the bounded decoder.  Bytes are compared exactly
+with ``lzw_tpu.api`` on the same inputs for every flavor, and the "torch"
+backend's bytes and errors with the JAX "jax" backend's on randomized and
+corrupted streams (tests/test_differential_fuzz.py and
+tests/test_error_fuzz.py at small sizes).
 """
 
 import io
 
 import numpy as np
 import pytest
+import torch
 
 from lzw_tpu import api as japi
 from lzw_tpu.ops import reference as joracle
@@ -42,8 +47,11 @@ REF_SPECS = {
 }
 
 
-@pytest.fixture(params=["native", "oracle"])
-def backend(request):
+@pytest.fixture(params=["native", "oracle", "torch"])
+def backend(request, monkeypatch):
+    # The "torch" backend runs on the facade's device, "cuda" unless the
+    # caller names one: here the CPU, for every facade the tests build.
+    monkeypatch.setattr(api, "DEFAULT_DEVICE", "cpu")
     return request.param
 
 
@@ -202,8 +210,25 @@ class TestBackendDispatch:
         assert GifCodec(7).decode(lorem_ipsum_encoded)
 
     def test_jax_backend_is_not_ported(self):
-        with pytest.raises(ValueError, match="does not port"):
+        with pytest.raises(ValueError, match="counterpart .* is backend "
+                           "'torch'"):
             GifCodec(7, backend="jax")
+
+    def test_torch_backend_on_cuda_needs_a_card(self, monkeypatch):
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+        for make in (lambda: GifCodec(7, backend="torch"),
+                     lambda: TiffCodec(backend="torch", device="cuda:0"),
+                     lambda: LzwCodec(LzwSpec.tiff(), "torch", "cuda")):
+            with pytest.raises(RuntimeError, match="needs a CUDA device"):
+                make()
+        with pytest.raises(ValueError, match="unsupported device"):
+            FixedCodec(backend="torch", device="meta")
+
+    def test_torch_backend_takes_the_device(self):
+        codec = VariableCodec(4, Endianness.BIG, CodeSizeStrategy.TIFF,
+                              backend="torch", device="cpu")
+        assert codec.device == torch.device("cpu")
+        assert GifCodec(7, backend="native", device="cuda").device is None
 
     def test_unknown_backend_rejected(self):
         with pytest.raises(ValueError, match="unknown backend"):
@@ -356,3 +381,98 @@ def test_oracle_matches_the_jax_oracle(name):
             assert oracle.unpack_codes_fixed(
                 wire, 12, spec.endianness) == joracle.unpack_codes_fixed(
                 wire, 12, ref.endianness)
+
+
+# ---- the "torch" backend against the JAX "jax" backend ------------------
+
+FUZZ_SPECS = {
+    "gif3": JSpec.gif(3),
+    "gif7": JSpec.gif(7),
+    "tiff": JSpec.tiff(),
+    "fixed_le": JSpec.fixed(JEndianness.LITTLE),
+    "fixed_be": JSpec.fixed(JEndianness.BIG),
+    "var6_be_tiff": JSpec.variable(6, JEndianness.BIG, JStrategy.TIFF),
+}
+
+
+def _fuzz_inputs(spec, rng, n_cases=6):
+    """tests/test_differential_fuzz.py's generator: uniform, runs, tiny
+    alphabet (KwKwK-heavy) and periodic inputs of up to 300 bytes."""
+    hi = 1 << spec.code_size
+    out = []
+    for _ in range(n_cases):
+        kind = rng.integers(0, 4)
+        n = int(rng.integers(0, 300))
+        if kind == 0:
+            data = rng.integers(0, hi, size=n)
+        elif kind == 1:
+            data = np.repeat(rng.integers(0, hi, size=max(n // 9, 1)), 9)[:n]
+        elif kind == 2:
+            data = rng.integers(0, min(3, hi), size=n)
+        else:
+            period = rng.integers(1, 8)
+            data = np.tile(rng.integers(0, hi, size=period),
+                           n // period + 1)[:n]
+        out.append(data.astype(np.uint8).tobytes())
+    return out
+
+
+@pytest.mark.parametrize("name", list(FUZZ_SPECS))
+def test_torch_backend_equals_the_jax_backend(name):
+    ref = FUZZ_SPECS[name]
+    jax_codec = japi.LzwCodec(ref, backend="jax")
+    codec = LzwCodec(from_reference_spec(ref), backend="torch", device="cpu")
+    rng = np.random.default_rng(0xC0DEC)
+    for data in _fuzz_inputs(ref, rng):
+        enc = codec.encode(data)
+        assert enc == jax_codec.encode(data) == joracle.encode_bytes(
+            data, ref), len(data)
+        if not joracle.eoi_width_quirk(joracle.encode_codes(data, ref), ref):
+            assert codec.decode(enc) == jax_codec.decode(enc) == data
+
+
+def _fuzz_outcome(fn, *args):
+    """("ok", bytes) or (error class name, code or None)."""
+    try:
+        return "ok", fn(*args)
+    except (UnexpectedCodeError, japi.UnexpectedCodeError) as exc:
+        return "UnexpectedCodeError", exc.code
+    except Exception as exc:  # compared by class name
+        return type(exc).__name__, None
+
+
+def _corruptions(stream: bytes, rng) -> list[bytes]:
+    """tests/test_error_fuzz.py's corruptions: byte flips, a truncation, a
+    splice of two halves and pure noise."""
+    out = []
+    if len(stream) < 4:
+        return out
+    for _ in range(3):
+        b = bytearray(stream)
+        i = int(rng.integers(0, len(b)))
+        b[i] ^= int(rng.integers(1, 256))
+        out.append(bytes(b))
+    out.append(stream[: int(rng.integers(1, len(stream)))])
+    i = int(rng.integers(1, len(stream)))
+    j = int(rng.integers(1, len(stream)))
+    out.append(stream[:i] + stream[j:])
+    out.append(rng.integers(0, 256, size=int(rng.integers(4, 60)))
+               .astype(np.uint8).tobytes())
+    return out
+
+
+@pytest.mark.parametrize("name", ["gif7", "tiff", "fixed_le"])
+def test_torch_backend_errors_equal_the_jax_backend(name):
+    ref = FUZZ_SPECS[name]
+    jax_codec = japi.LzwCodec(ref, backend="jax")
+    codec = LzwCodec(from_reference_spec(ref), backend="torch", device="cpu")
+    rng = np.random.default_rng(0xE44)
+    hi = 1 << ref.code_size
+    for trial in range(4):
+        data = rng.integers(0, hi, size=int(rng.integers(20, 400))).astype(
+            np.uint8).tobytes()
+        stream = joracle.encode_bytes(data, ref)
+        for k, bad in enumerate(_corruptions(stream, rng)):
+            want = _fuzz_outcome(jax_codec.decode, bad)
+            assert _fuzz_outcome(codec.decode, bad) == want, (trial, k)
+            assert _fuzz_outcome(joracle.decode_bytes, bad, ref) == want

@@ -15,7 +15,9 @@ import numpy as np
 import pytest
 import torch
 
-from lzw_tpu_torch import BlockParallelCodec, Endianness, LzwSpec
+from lzw_tpu_torch import (
+    BlockParallelCodec, CodeSizeStrategy, Endianness, LzwSpec,
+)
 from lzw_tpu_torch.kernels import ablate, build, probe
 from lzw_tpu_torch.kernels import decode as tdec
 from lzw_tpu_torch.kernels import encode as tenc
@@ -381,3 +383,112 @@ def test_probe_gather_matches_plain(cuda):
         assert torch.equal(probe.gather_loop(tab, idx, 100),
                            probe.gather_loop_reference(tab, idx, 100))
     assert build.LAUNCHES["probe_gather"] == before + 7
+
+
+# ---- the single-stream decoder and the "torch" facades --------------------
+
+STREAM_SPECS = {**SPECS, "fixed_be": LzwSpec.fixed(Endianness.BIG),
+                "var4_be_tiff": LzwSpec.variable(4, Endianness.BIG,
+                                                 CodeSizeStrategy.TIFF)}
+CORRUPT_TIFF = bytes([0x1F, 0x40, 0x3A, 0, 0, 0, 0x44, 0, 0, 0x44, 0, 0x60,
+                      0x54])
+
+
+def _stream_rows(spec, seed):
+    """Rows of streams: empty, short, random, compressible, a truncated and
+    a corrupt one, with garbage past each row's valid bytes."""
+    from lzw_tpu_torch.ops import reference as oracle
+
+    rng = np.random.default_rng(seed)
+    hi = spec.alphabet_size if spec.variable else 256
+    datas = [b"", bytes([1]),
+             rng.integers(0, hi, 300).astype(np.uint8).tobytes(),
+             rng.integers(0, hi, 30000).astype(np.uint8).tobytes(),
+             np.resize(rng.integers(0, hi, 40).astype(np.uint8),
+                       20000).tobytes()]
+    streams = [oracle.encode_bytes(d, spec) for d in datas]
+    streams.append(streams[3][: len(streams[3]) // 2])
+    streams.append(CORRUPT_TIFF)
+    M = max(len(s) for s in streams) + 7
+    mat = rng.integers(0, 256, (len(streams), M)).astype(np.uint8)
+    for i, s in enumerate(streams):
+        mat[i, : len(s)] = np.frombuffer(s, np.uint8)
+    return (torch.from_numpy(mat),
+            torch.tensor([len(s) for s in streams], dtype=torch.int32))
+
+
+@pytest.mark.parametrize("name", list(STREAM_SPECS))
+def test_stream_kernels_match_plain(name, cuda):
+    from lzw_tpu_torch.ops import decode as sdec
+
+    spec = STREAM_SPECS[name]
+    data, n_valid = _stream_rows(spec, len(name))
+    before = dict(build.LAUNCHES)
+    got = sdec.decode_pass1(data.to(cuda), n_valid.to(cuda), spec)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["stream_pass1"] == before["stream_pass1"] + 1
+    want = sdec.decode_pass1(data, n_valid, spec)
+    for key, w in want.items():
+        assert torch.equal(got[key].cpu(), w), key
+    keys = ("gprefix", "gsuffix", "glocal", "out_g", "out_len", "out_off",
+            "out_lit")
+    for out_bound in (max(int(want["total_len"].max()), 1), 100):
+        g2 = sdec.decode_pass2(*(got[k] for k in keys), out_bound,
+                               spec.alphabet_size)
+        w2 = sdec.decode_pass2(*(want[k] for k in keys), out_bound,
+                               spec.alphabet_size)
+        for g, w in zip(g2, w2):
+            assert torch.equal(g.cpu(), w)
+    assert build.LAUNCHES["stream_pass2"] == before["stream_pass2"] + 2
+
+
+def test_torch_facades_equal_native_on_card(cuda):
+    from lzw_tpu_torch import (
+        FixedCodec, GifCodec, LzwCodec, TiffCodec, TruncatedStreamError,
+        UnexpectedCodeError,
+    )
+
+    corpus = load_corpus(pathlib.Path(__file__).parent.parent / "test-assets")
+    for spec in STREAM_SPECS.values():
+        data = corpus["tokyo"][:200_000]
+        if spec.variable:
+            data = bytes(b % spec.alphabet_size for b in data)
+        on_card = LzwCodec(spec, backend="torch", device=cuda)
+        native = LzwCodec(spec, backend="native")
+        enc = on_card.encode(data)
+        assert enc == native.encode(data)
+        assert on_card.decode(enc) == data
+        if spec.variable:
+            with pytest.raises(TruncatedStreamError):
+                on_card.decode(enc[: len(enc) // 2])
+    for make in (lambda: GifCodec(7, backend="torch"),
+                 lambda: FixedCodec(Endianness.BIG, backend="torch")):
+        assert make().device == torch.device("cuda")
+    with pytest.raises(UnexpectedCodeError) as ei:
+        TiffCodec(backend="torch").decode(CORRUPT_TIFF)
+    assert ei.value.code == 258
+
+
+def test_big_block_container_on_card(cuda, monkeypatch):
+    from lzw_tpu_torch.native.runtime import NativeRuntime, get_runtime
+    from lzw_tpu_torch.parallel import framing
+
+    spec = LzwSpec.gif(7)
+    corpus = load_corpus(pathlib.Path(__file__).parent.parent / "test-assets")
+    data = (corpus["tokyo"] * 4)[: 2 * (1 << 20) + 777]
+    data = bytes(b % 128 for b in data)
+    container = BlockParallelCodec(spec, block_size=1 << 20,
+                                   device=cuda).encode(data)
+    native = get_runtime().decode_blocks(
+        framing.parse_frame(container)[1], spec, 1 << 20)
+
+    def host_called(*args, **kwargs):
+        raise AssertionError("the big-block route called the native runtime")
+
+    monkeypatch.setattr(NativeRuntime, "decode_blocks", host_called)
+    before = dict(build.LAUNCHES)
+    codec = BlockParallelCodec(spec, block_size=1 << 20, device=cuda,
+                               pass2="device")
+    assert codec.decode(container) == native == data
+    assert build.LAUNCHES["stream_pass1"] == before["stream_pass1"] + 1
+    assert build.LAUNCHES["stream_pass2"] == before["stream_pass2"] + 1

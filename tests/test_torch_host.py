@@ -200,7 +200,9 @@ def test_import_is_jax_free():
         "assert 'lzw_tpu_torch.scripts.probe_gpu' in names, names; "
         "assert {'lzw_tpu_torch.api', 'lzw_tpu_torch.entry', "
         "'lzw_tpu_torch.parallel.multihost', 'lzw_tpu_torch.ops.reference', "
-        "'lzw_tpu_torch.utils.gifwrap'} <= set(names), names; "
+        "'lzw_tpu_torch.utils.gifwrap', 'lzw_tpu_torch.ops.decode', "
+        "'lzw_tpu_torch.ops.encode', 'lzw_tpu_torch.ops.bitpack'} "
+        "<= set(names), names; "
         "bad = [m for m in sys.modules "
         "if m.split('.')[0] in ('jax', 'jaxlib', 'lzw_tpu')]; "
         "assert not bad, bad"

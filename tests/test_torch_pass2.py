@@ -285,9 +285,10 @@ def test_pass2_route_option():
     spec = from_reference_spec(JSpec.gif(7))
     with pytest.raises(ValueError, match="pass2"):
         BlockParallelCodec(spec, device="cpu", pass2="gpu")
-    with pytest.raises(ValueError, match="at most"):
-        BlockParallelCodec(spec, block_size=tdec.MAX_BLOCK + 1, device="cpu",
-                           pass2="device")
+    # Blocks past MAX_BLOCK take the single-stream decoder on the device
+    # route (tests/test_torch_stream.py).
+    assert BlockParallelCodec(spec, block_size=tdec.MAX_BLOCK + 1,
+                              device="cpu", pass2="device").pass2 == "device"
     assert BlockParallelCodec(spec, device="cpu").pass2 == "auto"
 
 

@@ -21,6 +21,7 @@ from lzw_tpu_torch import (
 )
 from lzw_tpu_torch.kernels.decode import MAX_BLOCK
 from lzw_tpu_torch.native.runtime import NativeRuntime
+from lzw_tpu_torch.parallel import framing
 
 BS = 4096
 SPECS = {"gif7": JSpec.gif(7), "tiff": JSpec.tiff(),
@@ -138,7 +139,25 @@ def test_verify_without_runtime_catches_injected_corruption(monkeypatch,
 
 def test_verify_without_runtime_past_max_block_raises_the_build_error(
         no_runtime):
-    c = _codec(block_size=MAX_BLOCK + 1, verify=True)
+    # The sample check of blocks past MAX_BLOCK needs no runtime (see the
+    # next test); the decode of such blocks on the host route does, and
+    # raises the build error.
+    c = _codec(block_size=MAX_BLOCK + 1, verify=True, pass2="host")
+    data = _data("gif7", MAX_BLOCK + 1, seed=8)
+    container = framing.pack_frame(c.spec, MAX_BLOCK + 1, len(data), [
+        oracle.encode_bytes(data, SPECS["gif7"])])
     with pytest.raises(OSError, match="g\\+\\+"):
-        c._verify_sample(b"\x01\x02", [oracle.encode_bytes(
-            b"\x01\x02", SPECS["gif7"])])
+        c.decode(container)
+
+
+def test_verify_without_runtime_past_max_block_checks_the_sample(
+        no_runtime):
+    # Blocks past MAX_BLOCK have a plain decode (the single-stream
+    # decoder), so the sample is checked without the runtime: a good one
+    # passes and a wrong one raises VerificationError.
+    c = _codec(block_size=MAX_BLOCK + 1, verify=True)
+    data = _data("gif7", MAX_BLOCK + 1, seed=8)
+    c._verify_sample(data, [oracle.encode_bytes(data, SPECS["gif7"])])
+    with pytest.raises(VerificationError):
+        c._verify_sample(data, [oracle.encode_bytes(data[:-1] + b"\x00",
+                                                    SPECS["gif7"])])
