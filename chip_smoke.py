@@ -100,7 +100,13 @@ Phases, one line each, any failure exits non-zero:
    then both kernels against their plain versions at the shapes these
    runs gave them (each container's payload rows, each facade's 16 MiB
    stream; the plain pass 1 on a pool of processes), every output array
-   exact, with ns a code of pass 1.
+   exact, each kernel timed through its wrapper and alone, with ns a code
+   and its share of its bound; then both kernels against their plain
+   versions on the edge-case rows of ``testdata.stream_edge_cases`` in
+   six flavors.
+
+``python3 chip_smoke.py --stream-only`` runs phases 1, 2 and 14 alone
+(about two minutes) and ends with ``[done]`` lines, not the JSON lines.
 
 Phases 1-8 run on cuda:0.  Each timing of the encode-parse and pass-1
 kernels also prints their chains in flight (CTAs per SM from the occupancy
@@ -1739,18 +1745,27 @@ class PlainPass1:
         return out, sum(dt for _, dt in parts) * 1e3
 
 
+# Calls of each stream kernel a timing takes (CUDA events around them all).
+STREAM_REPS = 10
+
+
 def compare_stream(spec, mat, lens, plain: PlainPass1, label: str, device,
-                   out_bound: int | None = None, reps: int = 3):
+                   out_bound: int | None = None):
     """``stream_pass1`` and ``stream_pass2`` against their plain versions
     on the same rows on the card, every output array exact; pass 2 with
     ``out_bound`` (the container's block) or, as the facade calls it, the
-    longest decoded row.  ``reps`` timed launches of each after a warm-up,
-    or with 0 the compared launch of pass 1 timed alone (a facade stream
-    takes about a second).  Returns {kernel: Result}.  Bounds, in bytes:
-    pass 1 reads the valid payload bytes and writes its tables (three i32
-    [N, G]), words (three i32 and a bool [N, S]) and per-row results;
-    pass 2 reads the tables and words and writes the output u8 [N,
-    out_bound] and two i32 per row."""
+    longest decoded row.  Each kernel is timed through its wrapper (which
+    also allocates and zero-fills its outputs: the ``ms`` of its Result)
+    and alone (its launch into buffers made once), STREAM_REPS calls after
+    a warm-up.  Returns {kernel: Result}.
+
+    Bounds, in bytes, count what the work needs of this run's data, not
+    the arrays' sizes: pass 1 reads the valid payload bytes, the epoch
+    table and the lengths, and writes the table entries it fills (the
+    roots and the inserts, 12 B each), its words (13 B each) and per-row
+    results (24 B); pass 2 reads those words and entries (8 B each: the
+    prefix and the suffix) and writes the decoded bytes kept under
+    ``out_bound`` and 8 B per row."""
     import torch
 
     from lzw_tpu_torch.ops import decode as sdec
@@ -1759,39 +1774,65 @@ def compare_stream(spec, mat, lens, plain: PlainPass1, label: str, device,
     rows = torch.from_numpy(mat).to(device)
     lens_t = torch.from_numpy(lens).to(device)
     n = len(lens)
-    ms1, got = once_ms(lambda: sdec.decode_pass1(rows, lens_t, spec))
-    if reps:
-        ms1 = cuda_ms(lambda: sdec.decode_pass1(rows, lens_t, spec), reps)
+    got = sdec.decode_pass1(rows, lens_t, spec)
+    ms1 = cuda_ms(lambda: sdec.decode_pass1(rows, lens_t, spec),
+                  STREAM_REPS)
+    planes = [[got[k] for k in keys] for keys in (
+        sdec._TABLE_KEYS, sdec._WORD_KEYS, sdec._ROW_KEYS)]
+    alone1 = cuda_ms(lambda: sdec._launch_pass1(
+        rows, lens_t, spec, planes[0], planes[1], got["out_lit"], planes[2],
+        got["total_len"]), STREAM_REPS)
     want, plain_ms = plain.result()
     keys = list(want)
     err1 = max_abs_err([got[k] for k in keys], [want[k] for k in keys])
-    g_cols = got["gprefix"].shape[1]
-    s_cols = got["out_g"].shape[1]
+    longest = int(got["n_words"].max())
+    codes = int(got["n_words"].sum())
+    decoded = int(got["total_len"].sum())
+    alphabet = spec.alphabet_size
+    # The roots and the inserted entries (each inserted under a local code
+    # of at least first_free, so its glocal is not 0).
+    entries = n * alphabet + int(got["glocal"][:, alphabet:].ne(0).sum())
+    # The epochs of the longest row: its CLEAR and EOI steps (length 0).
+    at = int(got["n_words"].argmax())
+    epochs = max(int(got["out_len"][at, :longest].eq(0).sum()), 1)
+    epoch_bytes = 4 * len(sdec.epoch_widths(spec)[1])
     res = {"stream_pass1": result(
-        err1, ms1, plain_ms, int(lens.sum()) + n * (12 * g_cols
-                                                    + 13 * s_cols + 24), 0)}
+        err1, ms1, plain_ms, int(lens.sum()) + epoch_bytes + 4 * n
+        + 12 * entries + 13 * codes + 24 * n, 0)}
     if out_bound is None:
         out_bound = max(int(got["total_len"].max()), 1)
-    args = [got[k] for k in sdec.PASS2_KEYS] + [out_bound, spec.alphabet_size]
+    args = [got[k] for k in sdec.PASS2_KEYS] + [out_bound, alphabet]
     out = sdec.decode_pass2(*args)
     plain_ms, ref = once_ms(lambda: sdec.decode_pass2_reference(*args))
     err2 = max_abs_err(out, ref)
-    ms2 = cuda_ms(lambda: sdec.decode_pass2(*args), max(reps, 1))
+    ms2 = cuda_ms(lambda: sdec.decode_pass2(*args), STREAM_REPS)
+    dst = torch.zeros((n, out_bound), dtype=torch.uint8, device=device)
+    first_bad = torch.full((n,), -1, dtype=torch.int64, device=device)
+    alone2 = cuda_ms(lambda: sdec._launch_pass2(
+        args[:3], args[3:6], args[6], alphabet, dst, first_bad),
+        STREAM_REPS)
+    kept = int(got["total_len"].clamp(max=out_bound).sum())
     res["stream_pass2"] = result(
-        err2, ms2, plain_ms, n * (12 * g_cols + 13 * s_cols + out_bound + 8),
-        0)
+        err2, ms2, plain_ms, 13 * codes + 8 * entries + kept + 8 * n, 0)
     if err1 or err2:
         raise AssertionError(f"{label}: stream kernels != plain, "
                              f"max_abs_err {err1}, {err2}")
     if int(got["error"].abs().sum()) or int(out[1].ne(
             sdec.NO_ERROR_STEP).sum()):
         raise AssertionError(f"{label}: unexpected decode errors")
-    longest = int(got["n_words"].max())
-    decoded = int(got["total_len"].sum())
+    r1, r2 = res["stream_pass1"], res["stream_pass2"]
     say("stream", f"{label}: N={n} rows of {mat.shape[1]} B, longest "
-        f"{longest} codes; " + kernel_times(res)
-        + f"; stream_pass1 {ms1 * 1e6 / longest:.1f} ns a code, "
-        f"{decoded / MiB / ms1 * 1e3:.1f} MiB/s of output; stream_pass2 "
+        f"{longest} codes in {epochs} epochs, {codes} codes in all; "
+        + kernel_times(res) + f"; alone (no allocation or fill) "
+        f"{alone1:.4f} / {alone2:.4f} ms; stream_pass1 "
+        f"{ms1 * 1e6 / longest:.2f} ns a code of the longest row "
+        f"({alone1 * 1e6 / longest:.2f} alone, "
+        f"{alone1 * 1e3 / epochs:.2f} us an epoch), "
+        f"{r1.bound_ms / ms1:.2%} of its bound ({r1.bound_ms / alone1:.2%} "
+        f"alone), {decoded / MiB / ms1 * 1e3:.1f} MiB/s of output; "
+        f"stream_pass2 {ms2 * 1e6 / codes:.4f} ns a code "
+        f"({alone2 * 1e6 / codes:.4f} alone), {r2.bound_ms / ms2:.2%} of "
+        f"its bound ({r2.bound_ms / alone2:.2%} alone), "
         f"{decoded / MiB / ms2 * 1e3:.1f} MiB/s; kernel == plain exactly")
     return res
 
@@ -1810,7 +1851,8 @@ def run_stream(image: bytes, smi: str, device, facade: int = 16 * MiB,
     import os
     from concurrent.futures import ProcessPoolExecutor
 
-    from lzw_tpu_torch import LzwSpec
+    from lzw_tpu_torch import CodeSizeStrategy, Endianness, LzwSpec
+    from lzw_tpu_torch.utils import testdata
 
     _, streams, l_fac = timed_run(
         lambda: run_stream_facades(image, smi, device, facade),
@@ -1844,15 +1886,24 @@ def run_stream(image: bytes, smi: str, device, facade: int = 16 * MiB,
         for label, (spec, _, block) in batches.items():
             mat, lens, plain = jobs[label]
             res = compare_stream(spec, mat, lens, plain, label, device,
-                                 block, reps=3 if block else 0)
+                                 block)
             full = full or res
     say("stream", f"kernels vs plain at the main path's shapes: "
         f"{time.perf_counter() - t0:.1f} s, plain pass 1 on {workers} "
         "processes")
+    t0 = time.perf_counter()
+    specs = [LzwSpec.gif(7), LzwSpec.gif(2), LzwSpec.tiff(),
+             LzwSpec.fixed(Endianness.LITTLE), LzwSpec.fixed(Endianness.BIG),
+             LzwSpec.variable(4, Endianness.BIG, CodeSizeStrategy.TIFF)]
+    n_rows = testdata.check_stream_edge_cases(device, specs)
+    say("stream", f"edge cases: {n_rows} rows of {len(specs)} flavors "
+        "(testdata.stream_edge_cases, one launch a flavor), stream_pass1 "
+        "and stream_pass2 == plain exactly, pass 2 at two output bounds; "
+        f"{time.perf_counter() - t0:.1f} s")
     return launches, full
 
 
-def main() -> int:
+def main(stream_only: bool = False) -> int:
     if not (ROOT / "lzw_tpu_torch").is_dir():
         print("chip_smoke.py: lzw_tpu_torch/ not found beside the script; "
               "run it from a checkout of the repository", file=sys.stderr)
@@ -1898,6 +1949,15 @@ def main() -> int:
     say("build", f"native runtime from {runtime.SOURCE.relative_to(ROOT)}: "
         f"{secs['native']:.2f} s")
     count_host_calls()
+    assets = ROOT / "test-assets"
+    tokyo = load_tokyo_pixels(assets / "tokyo_128_colors.png")
+    if stream_only:
+        t14 = time.perf_counter()
+        launches, _ = run_stream(tile(tokyo, 128 * MiB), smi, device)
+        say("done", f"phase 14: {time.perf_counter() - t14:.1f} s, "
+            f"launches {launches}; wall time "
+            f"{time.perf_counter() - t_start:.1f} s; {smi}")
+        return 0
 
     # 3. Kernel vs plain, all four flavors, 64 x 8 KiB.
     specs = {"gif7": LzwSpec.gif(7), "gif2": LzwSpec.gif(2),
@@ -1910,8 +1970,6 @@ def main() -> int:
         f"decode_pass1 on {n_pass1} cases x 3 row kinds == plain exactly")
 
     # 4. The slice at full size.
-    assets = ROOT / "test-assets"
-    tokyo = load_tokyo_pixels(assets / "tokyo_128_colors.png")
     lorem = (assets / "lorem_ipsum.txt").read_bytes()
     gif7 = LzwSpec.gif(7)
     total = {name: 0 for name in build.KERNELS}
@@ -2023,4 +2081,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--multihost-worker"]:
         sys.exit(multihost_worker(sys.argv[2:]))
-    sys.exit(main())
+    if sys.argv[1:] not in ([], ["--stream-only"]):
+        sys.exit(f"usage: {sys.argv[0]} [--stream-only]")
+    sys.exit(main(stream_only=sys.argv[1:] == ["--stream-only"]))

@@ -14,11 +14,15 @@ codes: it reads each code at the bit cursor, keeps the dictionary as
 local->global ``code_map`` translates wire codes of the current epoch; a
 CLEAR only rewinds the local index, so the tables are immutable once
 written), and records per word its global id, length, output offset and
-whether it is a first-code literal.
+whether it is a first-code literal.  Within an epoch (CLEAR to CLEAR) the
+width of the k-th code depends on k alone (:func:`epoch_widths`), so the
+kernel reads and decodes a whole epoch at once, one CTA a row.
 
 Pass 2 (:func:`decode_pass2`, kernel ``csrc/stream_pass2.cu``) walks every
 word's suffix chain from its global id and writes byte
-``offset + length - 1 - r`` at step ``r``; the words are independent.
+``offset + length - 1 - r`` at step ``r``; the words are independent, and
+a CTA walks a chunk of them in a window of the tables staged in shared
+memory.
 
 Errors are the reference's: a code beyond the next index, a full table
 without a CLEAR, a truncated stream, and the corrupt chain of pass 2 (the
@@ -43,6 +47,8 @@ before pass 2 reads offsets of a row that long.
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -55,10 +61,10 @@ from lzw_tpu_torch.spec import (
 
 __all__ = [
     "ERR_NONE", "ERR_UNEXPECTED_CODE", "ERR_MISSING_CLEAR", "ERR_TRUNCATED",
-    "NO_ERROR_STEP", "PASS2_KEYS", "check_offsets", "decode_block",
-    "decode_pass1",
+    "NO_ERROR_STEP", "PASS2_CHUNK", "PASS2_KEYS", "STREAM_LAYOUTS",
+    "StreamLayout", "check_offsets", "decode_block", "decode_pass1",
     "decode_pass1_reference", "decode_pass2", "decode_pass2_reference",
-    "pass1_step_bound", "raise_decode_error",
+    "epoch_widths", "pass1_step_bound", "pass2_grid", "raise_decode_error",
 ]
 
 ERR_NONE = 0
@@ -76,6 +82,78 @@ _WORD_KEYS = ("out_g", "out_len", "out_off")
 _ROW_KEYS = ("n_words", "error", "error_code", "max_len")
 # Pass 1's outputs that pass 2 takes, in its argument order.
 PASS2_KEYS = (*_TABLE_KEYS, *_WORD_KEYS, "out_lit")
+
+
+class StreamLayout(NamedTuple):
+    """A stream kernel's CTA: ``threads`` threads and ``shared_bytes`` of
+    dynamic shared memory (the sources' kThreads and kSharedBytes; each
+    launch function refuses any other)."""
+
+    threads: int
+    shared_bytes: int
+
+
+STREAM_LAYOUTS = {
+    # One CTA a row.  By local code: global id and length (i32), first
+    # byte (u8); by step of an epoch (4096 at most): bit offset (i32, one
+    # more), link (u32) and code (u16).
+    "stream_pass1": StreamLayout(
+        1024, MAX_TABLE_SIZE * (4 + 4 + 1) + 4 * (4096 + 1) + 4096 * (4 + 2)),
+    # One CTA a chunk of PASS2_CHUNK word slots.  The 256 roots and an
+    # 8192-entry window of the tables, each entry one u32 (its prefix's
+    # index in the table << 8 | its suffix byte); the chunk's word slots
+    # sorted by length (u16); 8192 of its output bytes.
+    "stream_pass2": StreamLayout(512, 4 * (256 + 8192) + 2 * 2048 + 8192),
+}
+# Word slots one pass-2 CTA takes: about one epoch's words.
+PASS2_CHUNK = 2048
+
+
+@functools.lru_cache(maxsize=None)
+def epoch_widths(spec: LzwSpec) -> tuple[np.ndarray, np.ndarray]:
+    """The static pattern of one epoch: (widths, bits).
+
+    ``widths[k]`` is the width pass 1 reads step k of an epoch at, and
+    ``bits[k]`` its bit offset from the epoch's start (``bits`` has one
+    more entry, the end of the last step).  An epoch starts at the stream's
+    start or after a CLEAR; its step 0 inserts nothing, each later step
+    that does not end it inserts one entry, and the width bumps after the
+    insert that makes the next index ``(1 << width) - increment`` (the rule
+    of :class:`~lzw_tpu_torch.kernels.schedule.Schedule`, one step later
+    since the decoder's insert trails the encoder's).  Variable flavors
+    have ``4098 - first_free`` steps at most (the last of them a CLEAR, an
+    EOI or the missing-CLEAR error); fixed-12 has the ``4097 -
+    first_free`` steps up to the frozen table, 12 bits each.  Read-only
+    int32 arrays.
+    """
+    ff = spec.first_free_code
+    if not spec.variable:
+        widths = np.full(MAX_TABLE_SIZE + 1 - ff, MAX_WIDTH, np.int32)
+    else:
+        inc = spec.strategy.increment
+        width = spec.initial_width
+        out = []
+        for k in range(MAX_TABLE_SIZE + 2 - ff):
+            out.append(width)
+            if k >= 1 and ff + k == (1 << width) - inc and width < MAX_WIDTH:
+                width += 1
+        widths = np.asarray(out, np.int32)
+    bits = np.zeros(len(widths) + 1, np.int32)
+    bits[1:] = np.cumsum(widths)
+    widths.flags.writeable = False
+    bits.flags.writeable = False
+    return widths, bits
+
+
+@functools.lru_cache(maxsize=32)
+def _epoch_bits_on(spec: LzwSpec, device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(epoch_widths(spec)[1].copy()).to(device)
+
+
+def pass2_grid(n_rows: int, S: int) -> int:
+    """CTAs of a pass-2 launch on ``n_rows`` rows of ``S`` word slots: one
+    a chunk of PASS2_CHUNK slots of a row."""
+    return n_rows * -(-S // PASS2_CHUNK)
 
 
 def pass1_step_bound(n_bytes: int, spec: LzwSpec) -> int:
@@ -119,27 +197,37 @@ def decode_pass1(data: torch.Tensor, n_valid: torch.Tensor, spec: LzwSpec):
     N, M = data.shape
     S, G = _shapes(M, spec)
     dev = data.device
-    fn = build.load("stream_pass1").stream_pass1_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 12
-                   + [ctypes.c_void_p] * 13)
     with torch.cuda.device(dev):
         tables = torch.zeros((3, N, G), dtype=torch.int32, device=dev)
         words = torch.zeros((3, N, S), dtype=torch.int32, device=dev)
         lit = torch.zeros((N, S), dtype=torch.bool, device=dev)
         rows = torch.empty((4, N), dtype=torch.int32, device=dev)
         total = torch.empty(N, dtype=torch.int64, device=dev)
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(data.data_ptr(), n_valid.data_ptr(), N, M, S, G,
-                spec.alphabet_size, int(spec.variable),
-                int(spec.endianness.value == "little"), spec.initial_width,
-                spec.clear_code, spec.end_code, spec.first_free_code,
-                spec.strategy.increment,
-                *(t.data_ptr() for t in tables),
-                *(t.data_ptr() for t in words), lit.data_ptr(),
-                *(t.data_ptr() for t in rows), total.data_ptr(), stream)
-    build.check_launch("stream_pass1", rc)
+        _launch_pass1(data, n_valid, spec, tables, words, lit, rows, total)
     return _pass1_dict(tables, words, lit, rows, total)
+
+
+def _launch_pass1(data, n_valid, spec: LzwSpec, tables, words, lit, rows,
+                  total) -> None:
+    """Launch ``stream_pass1.cu`` into the outputs of :func:`decode_pass1`
+    (zeroed by the caller; ``tables``, ``words`` and ``rows`` are sequences
+    of its planes) and count it; raises when it does not launch."""
+    N, M = data.shape
+    G, S = tables[0].shape[1], words[0].shape[1]
+    fn = build.load("stream_pass1").stream_pass1_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 13
+                   + [ctypes.c_void_p] * 13)
+    bits = _epoch_bits_on(spec, data.device)
+    rc = fn(data.data_ptr(), n_valid.data_ptr(), bits.data_ptr(),
+            bits.shape[0] - 1, N, M, S, G, spec.alphabet_size,
+            int(spec.variable), int(spec.endianness.value == "little"),
+            spec.clear_code, spec.end_code, spec.first_free_code,
+            *STREAM_LAYOUTS["stream_pass1"], *(t.data_ptr() for t in tables),
+            *(t.data_ptr() for t in words), lit.data_ptr(),
+            *(t.data_ptr() for t in rows), total.data_ptr(),
+            torch.cuda.current_stream(data.device).cuda_stream)
+    build.check_launch("stream_pass1", rc)
 
 
 def _pass1_dict(tables, words, lit, rows, total) -> dict:
@@ -159,7 +247,7 @@ def _pass1_row(row: bytes, n_valid: int, spec: LzwSpec, S: int, G: int):
     """Plain pass 1 of one row: the JAX ``while_loop`` body
     (lzw_tpu/ops/decode.py:136-252) as a Python loop over codes, on Python
     lists.  Returns (tables, words, lit, (n_words, error, error_code,
-    max_len), total_len)."""
+    max_len), total_len, the bit cursor after the last step)."""
     alphabet = spec.alphabet_size
     variable = spec.variable
     little = spec.endianness.value == "little"
@@ -286,7 +374,7 @@ def _pass1_row(row: bytes, n_valid: int, spec: LzwSpec, S: int, G: int):
         if bad:
             err_code = code
     return ((gprefix, gsuffix, glocal), (out_g, out_len, out_off), out_lit,
-            (step, err, err_code, max(out_len)), off)
+            (step, err, err_code, max(out_len)), off, cursor)
 
 
 def decode_pass1_reference(data: torch.Tensor, n_valid: torch.Tensor,
@@ -302,8 +390,8 @@ def decode_pass1_reference(data: torch.Tensor, n_valid: torch.Tensor,
     data_np = data.cpu().numpy()
     n_np = n_valid.cpu().numpy()
     for i in range(N):
-        t, w, lt, r, tot = _pass1_row(data_np[i].tobytes(), int(n_np[i]),
-                                      spec, S, G)
+        t, w, lt, r, tot, _ = _pass1_row(data_np[i].tobytes(),
+                                         int(n_np[i]), spec, S, G)
         tables[:, i] = t
         words[:, i] = w
         lit[i] = lt
@@ -366,27 +454,34 @@ def decode_pass2(gprefix, gsuffix, glocal, out_g, out_len, out_off, out_lit,
                                       alphabet)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
-    N, G = gprefix.shape
-    S = out_g.shape[1]
-    fn = build.load("stream_pass2").stream_pass2_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
-                   + [ctypes.c_void_p] * 3)
+    N = gprefix.shape[0]
     with torch.cuda.device(dev):
         out = torch.zeros((N, out_bound), dtype=torch.uint8, device=dev)
         # (word << 32 | code) of the earliest corrupt chain, all ones if none.
         first_bad = torch.full((N,), -1, dtype=torch.int64, device=dev)
-        sms = torch.cuda.get_device_properties(dev).multi_processor_count
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(*(t.data_ptr() for t in tables),
-                *(t.data_ptr() for t in words), out_lit.data_ptr(),
-                N, G, S, out_bound, alphabet, sms, out.data_ptr(),
-                first_bad.data_ptr(), stream)
-    build.check_launch("stream_pass2", rc)
+        _launch_pass2(tables, words, out_lit, alphabet, out, first_bad)
     none = first_bad < 0
     err_word_step = torch.where(none, NO_ERROR_STEP, first_bad >> 32)
     err_code = torch.where(none, 0, first_bad & 0xFFFFFFFF)
     return out, err_word_step.to(torch.int32), err_code.to(torch.int32)
+
+
+def _launch_pass2(tables, words, out_lit, alphabet: int, out,
+                  first_bad) -> None:
+    """Launch ``stream_pass2.cu`` into ``out`` u8[N, out_bound] (zeroed by
+    the caller) and ``first_bad`` i64[N] (all ones) and count it; raises
+    when it does not launch."""
+    (N, G), S = tables[0].shape, words[0].shape[1]
+    threads, shared = STREAM_LAYOUTS["stream_pass2"]
+    fn = build.load("stream_pass2").stream_pass2_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
+                   + [ctypes.c_void_p] * 3)
+    rc = fn(*(t.data_ptr() for t in tables), *(t.data_ptr() for t in words),
+            out_lit.data_ptr(), N, G, S, out.shape[1], alphabet, threads,
+            pass2_grid(N, S), shared, out.data_ptr(), first_bad.data_ptr(),
+            torch.cuda.current_stream(out.device).cuda_stream)
+    build.check_launch("stream_pass2", rc)
 
 
 def decode_pass2_reference(gprefix, gsuffix, glocal, out_g, out_len,

@@ -1,5 +1,6 @@
 """Synthesised test vectors: foreign streams built from the port's own
-encoder, and the edge cases of the one-chain-per-warp kernels.
+encoder, the edge cases of the one-chain-per-warp kernels, and those of
+the single-stream decode kernels.
 
 Port of ``lzw_tpu/utils/testdata.py``, whose scalar oracle lives in the JAX
 package: here the codes come from the encode-parse kernel (its plain
@@ -24,7 +25,8 @@ from lzw_tpu_torch.spec import LzwSpec, MAX_TABLE_SIZE, UnexpectedCodeError
 
 __all__ = ["spliced_nonstrict_stream", "EncodeCase", "Pass1Case",
            "encode_edge_cases", "pass1_edge_cases", "CHAIN_COUNTS",
-           "check_edge_cases"]
+           "check_edge_cases", "StreamCase", "stream_edge_cases",
+           "stream_edge_rows", "check_stream_edge_cases"]
 
 
 def _pack_codes(codes: np.ndarray, widths: np.ndarray, little: bool) -> bytes:
@@ -331,3 +333,216 @@ def check_edge_cases(device) -> tuple[int, int]:
                            lambda: _dec.decode_pass1(*args, rows=rows))
             _same("decode_pass1", f"{c.label} rows={rows}", got, want[rows])
     return len(enc), len(p1)
+
+
+# ---- the single-stream decoder (lzw_tpu_torch.ops.decode) ----------------
+
+
+class StreamCase(NamedTuple):
+    """One row of the single-stream decoder: the stream's bytes, of which
+    the first ``n_valid`` are valid (the rest are the stream's own later
+    bytes)."""
+
+    label: str
+    stream: bytes
+    n_valid: int
+
+
+def _decoder_widths(codes, spec: LzwSpec) -> list[int]:
+    """The width pass 1 reads each code of ``codes`` at: its state machine
+    (CLEAR resets, one insert a step after an epoch's first, the width
+    bump after an insert), up to the code that ends the stream."""
+    ff = spec.first_free_code
+    width, nxt, first = spec.initial_width, ff, True
+    out = []
+    for c in codes:
+        out.append(width if spec.variable else 12)
+        if spec.variable and c == spec.clear_code:
+            width, nxt, first = spec.initial_width, ff, True
+            continue
+        if spec.variable and c == spec.end_code:
+            break
+        if first:
+            first = False
+            continue
+        if c > nxt or (spec.variable and nxt >= MAX_TABLE_SIZE):
+            break  # a bad code or a full table: the stream ends here
+        if nxt < MAX_TABLE_SIZE:
+            nxt += 1
+            if (spec.variable and nxt == (1 << width) - spec.strategy.increment
+                    and width < 12):
+                width += 1
+    return out
+
+
+def _stream_of(symbols, spec: LzwSpec) -> tuple[bytes, np.ndarray]:
+    """Pack ``symbols`` (a code, or (code, width) to force a width) at the
+    decoder's widths; returns (bytes, i64 bit offset of each symbol and of
+    the end)."""
+    codes = [s[0] if isinstance(s, tuple) else int(s) for s in symbols]
+    widths = _decoder_widths(codes, spec)
+    widths += [12] * (len(codes) - len(widths))
+    for i, s in enumerate(symbols):
+        if isinstance(s, tuple):
+            widths[i] = s[1]
+    offs = np.concatenate([[0], np.cumsum(widths)]).astype(np.int64)
+    return _pack_codes(np.asarray(codes), np.asarray(widths),
+                       spec.endianness.value == "little"), offs
+
+
+def _epoch_codes(rng, spec: LzwSpec, n: int, start: int = 0,
+                 kwkwk: float = 0.1) -> list[int]:
+    """Steps ``start`` .. ``start + n - 1`` of an epoch, each valid: step 0
+    a root, later ones a root, an entry of the epoch or (with probability
+    ``kwkwk``) the next index; never a control code."""
+    alphabet, ff = spec.alphabet_size, spec.first_free_code
+    out = []
+    for k in range(start, start + n):
+        nxt = min(ff + k - 1, MAX_TABLE_SIZE)
+        if k == 0:
+            c = int(rng.integers(0, alphabet))
+        elif rng.random() < kwkwk and nxt < MAX_TABLE_SIZE:
+            c = nxt
+        else:
+            c = int(rng.integers(0, alphabet + max(nxt - ff, 0)))
+            c = c if c < alphabet else c - alphabet + ff
+        out.append(c)
+    return out
+
+
+def _variable_cases(rng, spec: LzwSpec) -> list[StreamCase]:
+    C, EOI, ff = spec.clear_code, spec.end_code, spec.first_free_code
+    w0, inc = spec.initial_width, spec.strategy.increment
+    top = (1 << w0) - 1  # the largest code an epoch's first step can hold
+    full = MAX_TABLE_SIZE + 1 - ff  # the steps of a full epoch
+    bump = (1 << w0) - inc - ff  # the step whose insert bumps the width
+    cases = []
+
+    def add(label, symbols, n_valid=None):
+        stream, _ = _stream_of(symbols, spec)
+        cases.append(StreamCase(label, stream,
+                                len(stream) if n_valid is None else n_valid))
+
+    add("CLEAR, CLEAR", [C, C, *_epoch_codes(rng, spec, 30), EOI])
+    add("no leading CLEAR", [*_epoch_codes(rng, spec, 25), EOI])
+    # The first code of the stream names a local code never inserted.
+    add("first code reads UNINIT", [C, top, ff, *_epoch_codes(
+        rng, spec, 20, start=2), EOI])
+    # A first code after a CLEAR names an entry of the previous epoch.
+    add("first code reads a stale entry", [
+        C, *_epoch_codes(rng, spec, 40), C, min(ff + 5, top), ff,
+        *_epoch_codes(rng, spec, 20, start=2), EOI])
+    add("KwKwK at step 1", [C, 1, ff, ff + 1, *_epoch_codes(
+        rng, spec, 10, start=3), EOI])
+    add("bad code at step 1", [C, 1, ff + 1, 0, 1, EOI])
+    # The first code read at the bumped width is past the next index.
+    add("bad code at a width bump", [
+        C, *_epoch_codes(rng, spec, bump + 1), (1 << (w0 + 1)) - 1, 2, EOI])
+    stream, offs = _stream_of([C, *_epoch_codes(rng, spec, 200), EOI], spec)
+    inside = next(j for j in range(5, len(offs) - 2)
+                  if offs[j] % 8 and offs[j] // 8 * 8 + 8 < offs[j + 1])
+    boundary = next(j for j in range(5, len(offs) - 2) if offs[j] % 8 == 0)
+    cases.append(StreamCase("truncated inside a code", stream,
+                            int(offs[inside] // 8 + 1)))
+    cases.append(StreamCase("truncated on a code boundary", stream,
+                            int(offs[boundary] // 8)))
+    add("missing CLEAR at a full table", [C, *[1] * (full + 1), 2, EOI])
+    # The last data code's insert bumps the width: the EOI at the bumped
+    # width, and at the old one (the reference encoder's EOI width quirk).
+    data = _epoch_codes(rng, spec, bump + 1)
+    add("EOI at a width bump", [C, *data, EOI])
+    add("EOI at a width bump, old width", [C, *data, (EOI, w0)])
+    add("full epochs", [C, *_epoch_codes(rng, spec, full), C,
+                        *_epoch_codes(rng, spec, full, kwkwk=0.3), C,
+                        *_epoch_codes(rng, spec, 700), EOI])
+    add("empty", [C, 1, 2, EOI], n_valid=0)
+    return cases
+
+
+def _fixed_cases(rng, spec: LzwSpec) -> list[StreamCase]:
+    full = MAX_TABLE_SIZE + 1 - spec.first_free_code  # steps to the freeze
+    cases = []
+
+    def add(label, symbols, n_valid=None):
+        stream, _ = _stream_of(symbols, spec)
+        cases.append(StreamCase(label, stream,
+                                len(stream) if n_valid is None else n_valid))
+
+    frozen = [int(c) for c in rng.integers(0, MAX_TABLE_SIZE, 3000)]
+    add("long past the freeze", [*_epoch_codes(rng, spec, full), *frozen])
+    add("first code reads UNINIT", [300, 256, *_epoch_codes(
+        rng, spec, 20, start=2)])
+    add("KwKwK at step 1", [1, 256, 257, *_epoch_codes(rng, spec, 10,
+                                                       start=3)])
+    add("bad code at step 1", [1, 257, 0, 1])
+    add("bad code at the last insert", [*_epoch_codes(rng, spec, full - 2),
+                                        MAX_TABLE_SIZE - 1, 5])
+    stream, offs = _stream_of(_epoch_codes(rng, spec, 201), spec)
+    cases.append(StreamCase("truncated inside a code", stream,
+                            int(offs[100] // 8 + 1)))
+    cases.append(StreamCase("truncated on a code boundary", stream,
+                            int(offs[100] // 8)))
+    add("empty", [1, 2, 3], n_valid=0)
+    return cases
+
+
+def stream_edge_cases(spec: LzwSpec, seed: int = 0) -> list[StreamCase]:
+    """The single-stream decoder's edge cases for one flavor: CLEAR, CLEAR;
+    no leading CLEAR; a first code that reads UNINIT and one that reads a
+    stale entry of the previous epoch; KwKwK at step 1; a code past the
+    next index at step 1 and at a width bump; truncation inside a code and
+    on a code boundary; a full table without a CLEAR; EOI at a width bump,
+    at the bumped and at the old width; full epochs; an empty row.
+    Fixed-12 (no control codes) has a stream long past the freeze at 4096,
+    a first code that reads UNINIT, KwKwK at step 1, a code past the next
+    index at step 1 and at the last insert, both truncations and an empty
+    row.  Each stream is a few codes, or a few epochs at most."""
+    rng = np.random.default_rng(seed)
+    return (_variable_cases if spec.variable else _fixed_cases)(rng, spec)
+
+
+def stream_edge_rows(spec: LzwSpec, seed: int = 0):
+    """:func:`stream_edge_cases` as one launch: u8[N, M] rows of very
+    different lengths and i32[N] valid lengths, random bytes past each
+    stream.  Returns (labels, rows, n_valid)."""
+    cases = stream_edge_cases(spec, seed)
+    rng = np.random.default_rng(seed + 1)
+    M = max(len(c.stream) for c in cases) + 16
+    mat = rng.integers(0, 256, (len(cases), M)).astype(np.uint8)
+    for i, c in enumerate(cases):
+        mat[i, : len(c.stream)] = np.frombuffer(c.stream, np.uint8)
+    return ([c.label for c in cases], mat,
+            np.array([c.n_valid for c in cases], np.int32))
+
+
+def check_stream_edge_cases(device, specs) -> int:
+    """:func:`stream_edge_rows` of each spec through ``decode_pass1`` and
+    ``decode_pass2`` on ``device`` against their plain versions, every
+    output array exact, pass 2 at the longest decoded row and at 100 bytes
+    (dropped writes); each wrapper call must count one launch.  Raises
+    AssertionError naming the flavor and array; returns the rows
+    compared."""
+    from lzw_tpu_torch.ops import decode as sdec
+
+    n = 0
+    for spec in specs:
+        _, mat, lens = stream_edge_rows(spec)
+        rows = torch.from_numpy(mat)
+        lens_t = torch.from_numpy(lens)
+        got = _counted("stream_pass1", lambda: sdec.decode_pass1(
+            rows.to(device), lens_t.to(device), spec))
+        want = sdec.decode_pass1_reference(rows, lens_t, spec)
+        for key, w in want.items():
+            if not torch.equal(got[key].cpu(), w):
+                raise AssertionError(f"stream_pass1 {spec}: {key} differs "
+                                     "from the plain version")
+        for bound in (max(int(want["total_len"].max()), 1), 100):
+            args = [bound, spec.alphabet_size]
+            g2 = _counted("stream_pass2", lambda: sdec.decode_pass2(
+                *(got[k] for k in sdec.PASS2_KEYS), *args))
+            w2 = sdec.decode_pass2_reference(
+                *(want[k] for k in sdec.PASS2_KEYS), *args)
+            _same("stream_pass2", f"{spec} out_bound {bound}",
+                  [g.cpu() for g in g2], w2)
+        n += len(lens)
+    return n

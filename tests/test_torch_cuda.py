@@ -442,6 +442,14 @@ def test_stream_kernels_match_plain(name, cuda):
     assert build.LAUNCHES["stream_pass2"] == before["stream_pass2"] + 2
 
 
+def test_stream_edge_cases_match_plain(cuda):
+    # testdata.stream_edge_cases of every flavor, one launch each: the
+    # redesigned kernels against the plain versions, every array exact.
+    n = testdata.check_stream_edge_cases(cuda, STREAM_SPECS.values())
+    assert n == sum(len(testdata.stream_edge_cases(spec))
+                    for spec in STREAM_SPECS.values())
+
+
 def test_torch_facades_equal_native_on_card(cuda):
     from lzw_tpu_torch import (
         FixedCodec, GifCodec, LzwCodec, TiffCodec, TruncatedStreamError,
