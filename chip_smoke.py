@@ -22,7 +22,10 @@ Phases, one line each, any failure exits non-zero:
    one-chain-per-warp design (``lzw_tpu_torch.utils.testdata``: blocks of
    length 0, 1, 2 and B in one launch, partly filled CTAs and more blocks
    than one round of chains, full tables, resets, KwKwK runs, errors and
-   the words past each block's stop), pass 1 with every row kind, exact;
+   the words past each block's stop), the encode parse with and without
+   positions against one plain run, pass 1 with every row kind, exact
+   (here and in phases 4 and 5 the encode parse's two instances, the
+   container's and the positions one, against one plain run);
 4. the slice: ``BlockParallelCodec(LzwSpec.gif(7), device="cuda:0")`` on
    128 MiB (2048 x 64 KiB blocks) of the tiled image corpus and of the tiled
    text corpus: every payload equal to the native runtime's encoder, and a
@@ -103,7 +106,14 @@ Phases, one line each, any failure exits non-zero:
    exact, each kernel timed through its wrapper and alone, with ns a code
    and its share of its bound; then both kernels against their plain
    versions on the edge-case rows of ``testdata.stream_edge_cases`` in
-   six flavors.
+   six flavors;
+15. the JAX package's per-block encode (``lzw_tpu_torch.ops.encode.
+   encode_block``): on phase 3's rows ``encode_block`` on the card against
+   the CPU; then ``pack_codes_torch(encode_block(...))`` on 2048 x
+   64 KiB gif7 and 8192 x 4 KiB fixed-12 rows of the image plane equal,
+   block for block, to the payloads ``BlockParallelCodec`` frames, with
+   the positions and the container's instances, the wrapper and the pack
+   timed by CUDA events and the peak memory beside ``encode_block_peak``.
 
 ``python3 chip_smoke.py --stream-only`` runs phases 1, 2 and 14 alone
 (about two minutes) and ends with ``[done]`` lines, not the JSON lines.
@@ -119,7 +129,9 @@ word and the walk's time over the dependent loads along it.
 
 It prints a ``{"kernels": [...]}`` line, each kernel with its bound (the
 least time for the bytes it must move at 3.35 TB/s, or for its 32-bit
-integer operations at 16.7 T/s, whichever is larger), and ends with
+integer operations at 16.7 T/s, whichever is larger; ``encode_parse``'s
+numbers are the container's instance at phase 4's shape, its launches
+those of both instances, the positions one in phase 15), and ends with
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or outside the
 repository, it exits non-zero and prints no result.  It imports nothing of
 JAX or of the JAX package ``lzw_tpu``.
@@ -150,10 +162,13 @@ INT_OPS_PER_S = 64 * 132 * 1.98e9
 # kernel function; see PERF.md for the whole table).
 KERNEL_SOURCES = {
     # One kernel for K1, K2 and the legacy K6-K8, which differ only in the
-    # TPU's dictionary layout.
+    # TPU's dictionary layout, and, in its positions instance, for the XLA
+    # scan of the JAX package's per-block encode (phase 15).
     "encode_parse": ("lzw_tpu_torch/kernels/csrc/encode_parse.cu",
                      "lzw_tpu/kernels/encode_pallas.py:501 (K1), :595 (K2), "
-                     ":92 (K6), :105 (K7), :679 (K8)"),
+                     ":92 (K6), :105 (K7), :679 (K8); lzw_tpu/ops/encode.py:"
+                     "186 (no pallas_call: encode_block's lax.scan, "
+                     "positions instance)"),
     "decode_pass1": ("lzw_tpu_torch/kernels/csrc/decode_pass1.cu",
                      "lzw_tpu/kernels/decode_pallas.py:128"),
     # No TPU kernel: the torch glue over the word lengths that the JAX
@@ -413,10 +428,11 @@ def compare_decode(spec, codes, n_codes, block, sched_t, label,
 
 def compare_kernels(spec, mat, lens, block, device, label,
                     stride1: bool = False):
-    """The encode, pass-1 (stride-2 rows) and stride-2 walk kernels against
-    their plain versions on the same CUDA inputs, and the walk's bytes
-    against the blocks; with ``stride1`` also pass 1 with stride-1 rows and
-    the stride-1 walk.
+    """The encode (both instances: the container's, and the positions one
+    of ``ops.encode.encode_block``), pass-1 (stride-2 rows) and stride-2
+    walk kernels against their plain versions on the same CUDA inputs, and
+    the walk's bytes against the blocks; with ``stride1`` also pass 1 with
+    stride-1 rows and the stride-1 walk.
 
     Returns {kernel: Result}.  The encoder's bound: it reads the blocks'
     bytes and lengths and writes each code and three stats per block, about
@@ -429,13 +445,21 @@ def compare_kernels(spec, mat, lens, block, device, label,
     blocks_t = torch.from_numpy(mat).to(device)
     lens_t = torch.from_numpy(lens).to(device)
     enc = tenc.encode_blocks_codes(blocks_t, lens_t, spec)
-    plain_ms_e, enc_ref = once_ms(
-        lambda: tenc.encode_blocks_codes_reference(blocks_t, lens_t, spec))
-    err_e = max_abs_err(enc, enc_ref)
+    # One plain run with positions holds both instances: its first four
+    # arrays are the plain version without them.
+    plain_ms_e, enc_ref = once_ms(lambda: tenc.encode_blocks_codes_reference(
+        blocks_t, lens_t, spec, positions=True))
+    err_e = max_abs_err(enc, enc_ref[:4])
     ms_e = cuda_ms(lambda: tenc.encode_blocks_codes(blocks_t, lens_t, spec))
     if err_e:
         raise AssertionError(
             f"{label}: encode_parse != plain, max_abs_err {err_e}")
+    err_p = max_abs_err(tenc.encode_blocks_codes(
+        blocks_t, lens_t, spec, positions=True), enc_ref)
+    if err_p:
+        raise AssertionError(f"{label}: encode_parse with positions != "
+                             f"plain, max_abs_err {err_p}")
+    del enc_ref
     if int(enc[2].abs().sum()):
         raise AssertionError(f"{label}: unexpected encode error flags")
     say("chains", f"{label}: encode_parse " + chain_line(
@@ -467,7 +491,8 @@ def compare_kernels(spec, mat, lens, block, device, label,
         8 * n_in)
     say("kernels", f"{label}: N={mat.shape[0]} B={block} "
         f"codes={int(counts.sum())} max code/block={int(counts.max())}; "
-        + kernel_times(res) + ", kernel == plain exactly, "
+        + kernel_times(res) + ", kernel == plain exactly (encode_parse "
+        "with and without positions), "
         + ("both walks" if stride1 else "pass 2") + " == input")
     return res
 
@@ -1903,6 +1928,134 @@ def run_stream(image: bytes, smi: str, device, facade: int = 16 * MiB,
     return launches, full
 
 
+def encode_block_peak(n: int, block: int, out_bytes: int) -> int:
+    """Device bytes that ``ops.encode.encode_block`` on n rows of ``block``
+    bytes, then ``ops.bitpack.pack_codes_torch`` on its slots, add at their
+    peak; M = block + 1 codes a row at most, S = 2 * block + 3 slots, O =
+    out_bytes + 3 packed bytes a row with the slack.
+
+    encode_block, once the kernel's positions are made into the slots' i64
+    index [n, M] (and freed): the dense codes i32 [n, M], the live and body
+    masks (bool [n, M]) and the codes and widths i32 [n, S] while a width
+    plane i32 [n, M] is scattered: 14 nM + 8 nS.  The pack, with those
+    slots held (8 nS): the codes' bits and their bit offsets, i64 (16 nS),
+    the i64 rows [n, O] (8 nO), and inside the lane scatter
+    (``kernels.schedule._scatter_symbols``) the first bytes, the shifts and
+    the windows, i64 (24 nS), and one lane's index and its two value
+    temporaries, i64 (24 nS): 72 nS + 8 nO."""
+    M, S, O = block + 1, 2 * block + 3, out_bytes + 3
+    return max(14 * n * M + 8 * n * S, 72 * n * S + 8 * n * O)
+
+
+def run_encode_block(image: bytes, smi: str, device) -> list[dict]:
+    """Phase 15: the JAX package's per-block encode contract on the card.
+
+    On phase 3's 64 x 8 KiB rows of gif7, gif2, TIFF and fixed-12,
+    ``encode_block`` on the card against ``encode_block`` on the CPU,
+    ``fix_eoi_width`` both ways (every array exact); the positions instance
+    it launches is held against its plain version by
+    :func:`compare_kernels` at those rows and at both full-width shapes
+    below.  Then at full width, 2048 x 64 KiB gif7 and 8192 x 4 KiB
+    fixed-12 of the image plane: ``pack_codes_torch(encode_block(...,
+    fix_eoi_width=True))`` counted to launch ``encode_parse``, its payloads
+    equal block for block to those ``BlockParallelCodec`` frames for the
+    same data; the positions instance and the container's instance on the
+    same rows, the wrapper and the pack, by CUDA events, and the peak
+    device memory of the wrapper and the pack beside
+    :func:`encode_block_peak`.  Returns the counted runs' launches."""
+    import numpy as np
+    import torch
+
+    from lzw_tpu_torch import BlockParallelCodec, Endianness, LzwSpec
+    from lzw_tpu_torch.kernels import encode as tenc
+    from lzw_tpu_torch.ops import bitpack, encode
+    from lzw_tpu_torch.parallel import framing
+    from lzw_tpu_torch.utils import testdata
+    from lzw_tpu_torch.utils.card import cuda_ms
+
+    t0 = time.perf_counter()
+    specs = {"gif7": LzwSpec.gif(7), "gif2": LzwSpec.gif(2),
+             "tiff": LzwSpec.tiff(), "fixed": LzwSpec.fixed(Endianness.LITTLE)}
+    for i, (label, spec) in enumerate(specs.items()):
+        mat, lens = sample_blocks(spec, 64, 8192, seed=i)
+        blocks, lens_t = torch.from_numpy(mat), torch.from_numpy(lens)
+        blocks_d, lens_d = blocks.to(device), lens_t.to(device)
+        for fix in (False, True):
+            testdata.same_slots(
+                f"{label} fix_eoi_width={fix}",
+                encode.encode_block(blocks_d, lens_d, spec,
+                                    fix_eoi_width=fix),
+                encode.encode_block(blocks, lens_t, spec, fix_eoi_width=fix))
+    say("encode_block", f"64 x 8 KiB rows: encode_block on {device} == on "
+        "the CPU, fix_eoi_width both ways; "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    launches = []
+    for spec, block, depth, label in (
+            (LzwSpec.gif(7), 1 << 16, 128 * MiB, "gif7 image"),
+            (LzwSpec.fixed(Endianness.LITTLE), 1 << 12, 32 * MiB,
+             "fixed-12 image")):
+        data = image[:depth]
+        mat = np.frombuffer(data, np.uint8).reshape(-1, block)
+        n = mat.shape[0]
+        blocks = torch.from_numpy(mat.copy()).to(device)
+        lens = torch.full((n,), block, dtype=torch.int32, device=device)
+        out_bytes = encode.packed_bound(block, spec)
+
+        def run():
+            res = encode.encode_block(blocks, lens, spec, fix_eoi_width=True)
+            return res, bitpack.pack_codes_torch(
+                res["codes"], res["widths"], spec.endianness, out_bytes)
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        dt, (res, (buf, n_bytes)), lc = timed_run(
+            run, {"encode_parse": 1}, f"{label} encode_block")
+        peak = torch.cuda.max_memory_allocated() - before
+        launches.append(lc)
+        if int(res["error"].abs().sum()):
+            raise AssertionError(f"{label}: encode_block reported an error")
+        buf, n_bytes = buf.cpu().numpy(), n_bytes.cpu().numpy()
+        del res
+        container = BlockParallelCodec(spec, block_size=block,
+                                       device=device).encode(data)
+        payloads = framing.parse_frame(container)[1]
+        if len(payloads) != n or any(
+                buf[i, : n_bytes[i]].tobytes() != bytes(payloads[i])
+                for i in range(n)):
+            raise AssertionError(f"{label}: encode_block + pack_codes_torch "
+                                 "!= the container's payloads")
+        del buf
+        n_codes = int(tenc.encode_blocks_codes(blocks, lens, spec)[1].sum())
+        ms_pos = cuda_ms(lambda: tenc.encode_blocks_codes(
+            blocks, lens, spec, positions=True))
+        ms_plain = cuda_ms(lambda: tenc.encode_blocks_codes(blocks, lens,
+                                                            spec))
+        ms_wrap = cuda_ms(lambda: encode.encode_block(blocks, lens, spec,
+                                                      fix_eoi_width=True))
+        res = encode.encode_block(blocks, lens, spec, fix_eoi_width=True)
+        ms_pack = cuda_ms(lambda: bitpack.pack_codes_torch(
+            res["codes"], res["widths"], spec.endianness, out_bytes))
+        del res
+        # The positions instance moves the blocks in and 8 B a code out
+        # (its code and its byte).
+        bound = (n * block + 8 * n_codes) / HBM_BYTES_PER_S * 1e3
+        say("encode_block", f"{label} {n} x {block} B: pack_codes_torch("
+            "encode_block(fix_eoi_width=True)) == BlockParallelCodec's "
+            f"payloads block for block, {dt * 1e3:.1f} ms once, launches "
+            f"{lc}; encode_parse positions {ms_pos:.4f} ms (the container's "
+            f"instance on the same rows {ms_plain:.4f}; bound "
+            f"{bound:.5f} ms by bytes, {n_codes} codes), encode_block "
+            f"{ms_wrap:.4f} ms, pack_codes_torch {ms_pack:.4f} ms, by CUDA "
+            f"events; peak "
+            f"{peak / MiB:.1f} MiB of the wrapper and the pack (predicted "
+            f"{encode_block_peak(n, block, out_bytes) / MiB:.1f}); {smi}")
+        del blocks
+    say("encode_block", f"phase 15: {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def main(stream_only: bool = False) -> int:
     if not (ROOT / "lzw_tpu_torch").is_dir():
         print("chip_smoke.py: lzw_tpu_torch/ not found beside the script; "
@@ -1966,8 +2119,9 @@ def main(stream_only: bool = False) -> int:
         mat, lens = sample_blocks(spec, 64, 8192, seed=i)
         compare_kernels(spec, mat, lens, 8192, device, label, stride1=True)
     n_enc, n_pass1 = testdata.check_edge_cases(device)
-    say("kernels", f"edge cases: encode_parse on {n_enc} cases and "
-        f"decode_pass1 on {n_pass1} cases x 3 row kinds == plain exactly")
+    say("kernels", f"edge cases: encode_parse on {n_enc} cases with and "
+        f"without positions and decode_pass1 on {n_pass1} cases x 3 row "
+        "kinds == plain exactly")
 
     # 4. The slice at full size.
     lorem = (assets / "lorem_ipsum.txt").read_bytes()
@@ -2059,6 +2213,9 @@ def main(stream_only: bool = False) -> int:
     say("stream", f"phase 14: {time.perf_counter() - t14:.1f} s")
     add(launches)
     full.update(stream)
+
+    # 15. The JAX package's per-block encode contract on the card.
+    add(run_encode_block(image, smi, device))
     del image
 
     kernels = []

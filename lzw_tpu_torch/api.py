@@ -18,10 +18,10 @@ Backends: ``"native"`` (the C++ runtime on the host, truly streaming),
 codec: :func:`lzw_tpu_torch.ops.encode.encode_stream_bytes` and the two
 passes of :mod:`lzw_tpu_torch.ops.decode`, on the facade's ``device``:
 the CUDA kernels on a card, their plain versions on the CPU), and
-``"auto"``: native when it builds, else the oracle.  A single stream is
-one sequential chain, so on the card it is slower than the native runtime
-on one host thread, and ``"auto"`` stays on the host, as the JAX
-package's ``"auto"`` prefers the native runtime.
+``"auto"``: native when it builds, else ``"torch"`` on the facade's
+``device``, as the JAX package's ``"auto"`` is native when it builds,
+else its ``"jax"`` codec.  Without a card, ``"torch"`` on ``"cuda"``
+(the default device) raises: there is no silent step down to the CPU.
 """
 
 from __future__ import annotations
@@ -65,7 +65,7 @@ class LzwCodec:
         spec.validate()
         self.spec = spec
         if backend == "auto":
-            backend = "native" if native_available() else "oracle"
+            backend = "native" if native_available() else "torch"
         if backend == "native":
             self._native = get_runtime()
         self.device = None

@@ -43,6 +43,12 @@
 //  * variable flavors insert on every miss and reset the table when the
 //    inserted code equals reset_threshold (the entry that tripped the reset
 //    is wiped too); fixed-12 inserts only while next < 4096, then freezes.
+//
+// The positions instance (kPositions; lzw_tpu/ops/encode.py:186
+// encode_block's lax.scan, whose (code, width) slots sit at twice the byte
+// that emitted them) also writes pos i32[N, B+1]: for each code, the byte
+// index whose lookup missed and emitted it, and len for the final prefix.
+// The positions leave through the same 32-code runs as the codes.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -60,14 +66,14 @@ constexpr int kTableSize = 4096;
 constexpr uint32_t kHash = 2654435761u;  // Knuth's multiplicative hash
 
 // kVariable: the variable-width flavor (range check, reset), else fixed-12
-// (freeze at 4096).
-template <bool kVariable>
+// (freeze at 4096).  kPositions: also write each code's byte to `pos`.
+template <bool kVariable, bool kPositions>
 __global__ void encode_parse_kernel(
     const uint8_t* __restrict__ blocks, const int32_t* __restrict__ lens,
     int n_blocks, int block_size, int first_free, int max_code,
     int reset_threshold, int32_t* __restrict__ dense,
     int32_t* __restrict__ counts, int32_t* __restrict__ err,
-    int32_t* __restrict__ err_code) {
+    int32_t* __restrict__ err_code, int32_t* __restrict__ pos) {
   extern __shared__ uint4 shared[];
   const int lane = threadIdx.x & 31;
   const int warps = blockDim.x >> 5;
@@ -79,12 +85,15 @@ __global__ void encode_parse_kernel(
   for (int n = blockIdx.x * warps + warp; n < n_blocks;
        n += gridDim.x * warps) {
     const uint8_t* x = blocks + static_cast<int64_t>(n) * block_size;
-    int32_t* out = dense + static_cast<int64_t>(n) * (block_size + 1);
+    const int64_t row = static_cast<int64_t>(n) * (block_size + 1);
+    int32_t* out = dense + row;
+    int32_t* out_pos = kPositions ? pos + row : nullptr;
     const int len = lens[n];
     int cnt = 0, e = 0, ec = 0;
     // Emitted codes leave 32 at a time: code c is kept by lane c % 32, and
     // the warp writes a run when its last code is emitted, coalesced.
-    int32_t keep = 0;
+    // keep_pos holds the byte of the code in keep.
+    int32_t keep = 0, keep_pos = 0;
     if (len > 0) {
       warp_chain::clear<kTableBytes>(tab, lane);
       warp_chain::Window<uint8_t> in;
@@ -119,8 +128,14 @@ __global__ void encode_parse_kernel(
           int32_t* run = out + ((cnt & ~31) + lane);
           if (ent == 0 && !bad && !reset) {
             // The common miss: the first slot is empty.
-            if ((cnt & 31) == lane) keep = static_cast<int32_t>(prefix);
-            if ((cnt & 31) == 31) *run = keep;
+            if ((cnt & 31) == lane) {
+              keep = static_cast<int32_t>(prefix);
+              if (kPositions) keep_pos = i - 1;
+            }
+            if ((cnt & 31) == 31) {
+              *run = keep;
+              if (kPositions) out_pos[(cnt & ~31) + lane] = keep_pos;
+            }
             ++cnt;
             if (kVariable || nxt < kTableSize) {
               tab[h] = (key << 12) | static_cast<uint32_t>(nxt);
@@ -143,8 +158,14 @@ __global__ void encode_parse_kernel(
             prefix = ent & 0xFFFu;
             continue;
           }
-          if ((cnt & 31) == lane) keep = static_cast<int32_t>(prefix);
-          if ((cnt & 31) == 31) *run = keep;
+          if ((cnt & 31) == lane) {
+            keep = static_cast<int32_t>(prefix);
+            if (kPositions) keep_pos = i - 1;
+          }
+          if ((cnt & 31) == 31) {
+            *run = keep;
+            if (kPositions) out_pos[(cnt & ~31) + lane] = keep_pos;
+          }
           ++cnt;
           if (reset) {
             // The tripping entry is wiped with the rest.
@@ -160,12 +181,22 @@ __global__ void encode_parse_kernel(
         in.fill<1>(st);
       }
       if (e == 0) {
-        if ((cnt & 31) == lane) keep = static_cast<int32_t>(prefix);
-        if ((cnt & 31) == 31) out[(cnt & ~31) + lane] = keep;
+        // The final prefix, at byte len.
+        if ((cnt & 31) == lane) {
+          keep = static_cast<int32_t>(prefix);
+          if (kPositions) keep_pos = len;
+        }
+        if ((cnt & 31) == 31) {
+          out[(cnt & ~31) + lane] = keep;
+          if (kPositions) out_pos[(cnt & ~31) + lane] = keep_pos;
+        }
         ++cnt;
       }
       // The open run's codes below cnt.
-      if (lane < (cnt & 31)) out[(cnt & ~31) + lane] = keep;
+      if (lane < (cnt & 31)) {
+        out[(cnt & ~31) + lane] = keep;
+        if (kPositions) out_pos[(cnt & ~31) + lane] = keep_pos;
+      }
     }
     if (lane == 0) {
       counts[n] = cnt;
@@ -180,26 +211,32 @@ __global__ void encode_parse_kernel(
 // Launch on `stream` with `grid` CTAs of `warps` warps and `shared_bytes`
 // (= warps * kChainBytes) of dynamic shared memory; returns the first CUDA
 // error of setting the shared limit or of the launch (0 on success).
-// `dense` must be zero-filled by the caller (the kernel writes only [0,
-// count)).  reset_threshold < 0 selects the fixed-12 flavor.
+// `dense` (and `pos`, when given) must be zero-filled by the caller (the
+// kernel writes only [0, count)).  reset_threshold < 0 selects the fixed-12
+// flavor; a null `pos` launches the instance that writes no positions.
 extern "C" int encode_parse_launch(
     const uint8_t* blocks, const int32_t* lens, int n_blocks, int block_size,
     int first_free, int max_code, int reset_threshold, int32_t* dense,
-    int32_t* counts, int32_t* err, int32_t* err_code, int grid, int warps,
-    int shared_bytes, void* stream) {
-  auto* kernel = reset_threshold >= 0 ? &encode_parse_kernel<true>
-                                      : &encode_parse_kernel<false>;
+    int32_t* counts, int32_t* err, int32_t* err_code, int32_t* pos, int grid,
+    int warps, int shared_bytes, void* stream) {
+  const bool variable = reset_threshold >= 0;
+  auto* kernel =
+      pos == nullptr
+          ? (variable ? &encode_parse_kernel<true, false>
+                      : &encode_parse_kernel<false, false>)
+          : (variable ? &encode_parse_kernel<true, true>
+                      : &encode_parse_kernel<false, true>);
   return warp_chain::launch<kChainBytes>(
       kernel, grid, warps, shared_bytes, stream, blocks, lens, n_blocks,
       block_size, first_free, max_code, reset_threshold, dense, counts, err,
-      err_code);
+      err_code, pos);
 }
 
-// CTAs per SM at `warps` warps and `shared_bytes`, into *ctas (the two
-// flavors take the same resources but for registers; this asks for the
-// variable one).
+// CTAs per SM at `warps` warps and `shared_bytes`, into *ctas (the four
+// instances take the same resources but for registers; this asks for the
+// variable one without positions).
 extern "C" int encode_parse_occupancy(int warps, int shared_bytes,
                                       int* ctas) {
-  return warp_chain::occupancy<kChainBytes>(&encode_parse_kernel<true>,
-                                            warps, shared_bytes, ctas);
+  return warp_chain::occupancy<kChainBytes>(
+      &encode_parse_kernel<true, false>, warps, shared_bytes, ctas);
 }

@@ -47,23 +47,27 @@ def _check_inputs(blocks: torch.Tensor, lens: torch.Tensor):
 
 
 def encode_blocks_codes(blocks: torch.Tensor, lens: torch.Tensor,
-                        spec: LzwSpec | None):
+                        spec: LzwSpec | None, positions: bool = False):
     """LZW-parse each row of ``blocks`` into its dense code sequence.
 
     Args:
       blocks: u8[N, B] block bytes (contents past ``lens`` ignored).
       lens:   i32[N] valid byte counts (<= B).
       spec:   the wire spec (``None`` or a fixed spec: fixed-12 parse).
+      positions: also return each code's byte.
     Returns:
       (dense i32[N, B+1] zero past counts, counts i32[N], err i32[N],
       err_code i32[N]); err 1 flags a byte > max_code after the first.
+      With ``positions`` a fifth array, pos i32[N, B+1] zero past counts:
+      the byte index whose lookup missed and emitted each code, and the
+      row's length for the final prefix.
 
     CPU tensors run :func:`encode_blocks_codes_reference`; CUDA tensors run
     the kernel, and anything else raises.
     """
     _check_inputs(blocks, lens)
     if blocks.device.type == "cpu":
-        return encode_blocks_codes_reference(blocks, lens, spec)
+        return encode_blocks_codes_reference(blocks, lens, spec, positions)
     if blocks.device.type != "cuda":
         raise ValueError(f"unsupported device {blocks.device}")
     first_free, max_code, reset = _spec_params(spec)
@@ -72,7 +76,7 @@ def encode_blocks_codes(blocks: torch.Tensor, lens: torch.Tensor,
     fn = build.load("encode_parse").encode_parse_launch
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 5
-                   + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
+                   + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
                    + [ctypes.c_void_p])
     with torch.cuda.device(dev):
         g = chains.launch_geometry("encode_parse", N, dev)
@@ -80,17 +84,24 @@ def encode_blocks_codes(blocks: torch.Tensor, lens: torch.Tensor,
         counts = torch.empty(N, dtype=torch.int32, device=dev)
         err = torch.empty(N, dtype=torch.int32, device=dev)
         err_code = torch.empty(N, dtype=torch.int32, device=dev)
+        # A null pointer launches the instance that writes no positions.
+        pos = (torch.zeros((N, B + 1), dtype=torch.int32, device=dev)
+               if positions else None)
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(blocks.data_ptr(), lens.data_ptr(), N, B, first_free,
                 max_code, reset, dense.data_ptr(), counts.data_ptr(),
-                err.data_ptr(), err_code.data_ptr(), g.grid, g.warps,
+                err.data_ptr(), err_code.data_ptr(),
+                None if pos is None else pos.data_ptr(), g.grid, g.warps,
                 g.shared_bytes, stream)
     build.check_launch("encode_parse", rc)
+    if positions:
+        return dense, counts, err, err_code, pos
     return dense, counts, err, err_code
 
 
 def encode_blocks_codes_reference(blocks: torch.Tensor, lens: torch.Tensor,
-                                  spec: LzwSpec | None):
+                                  spec: LzwSpec | None,
+                                  positions: bool = False):
     """Plain PyTorch version of :func:`encode_blocks_codes`.
 
     A lockstep loop over byte positions, vectorised over blocks, mirroring
@@ -115,6 +126,8 @@ def encode_blocks_codes_reference(blocks: torch.Tensor, lens: torch.Tensor,
     nxt = torch.full((N,), first_free, dtype=torch.int64, device=dev)
     err = torch.zeros(N, dtype=torch.int64, device=dev)
     err_code = torch.zeros(N, dtype=torch.int64, device=dev)
+    # slots[:, i]: the code emitted at step i (the miss of byte i, or the
+    # final prefix at i == len), -1 where none; i is the code's byte.
     slots = torch.full((N, B + 1), -1, dtype=torch.int64, device=dev)
 
     for i in range(B + 1):
@@ -149,11 +162,17 @@ def encode_blocks_codes_reference(blocks: torch.Tensor, lens: torch.Tensor,
     # Hole compaction: emitted codes to the front of each row, zeros after.
     keep = slots >= 0
     counts = keep.sum(dim=1)
-    pos = torch.where(keep, keep.cumsum(dim=1) - 1, B + 1)
+    col = torch.where(keep, keep.cumsum(dim=1) - 1, B + 1)
     dense = torch.zeros((N, B + 2), dtype=torch.int64, device=dev)
-    dense.scatter_(1, pos, torch.where(keep, slots, 0))
-    return (dense[:, : B + 1].to(torch.int32), counts.to(torch.int32),
-            err.to(torch.int32), err_code.to(torch.int32))
+    dense.scatter_(1, col, torch.where(keep, slots, 0))
+    out = (dense[:, : B + 1].to(torch.int32), counts.to(torch.int32),
+           err.to(torch.int32), err_code.to(torch.int32))
+    if not positions:
+        return out
+    step = torch.arange(B + 1, device=dev)[None, :].expand(N, -1)
+    pos = torch.zeros((N, B + 2), dtype=torch.int64, device=dev)
+    pos.scatter_(1, col, torch.where(keep, step, 0))
+    return out + (pos[:, : B + 1].to(torch.int32),)
 
 
 def pack12(dense: torch.Tensor, counts: torch.Tensor, little: bool):

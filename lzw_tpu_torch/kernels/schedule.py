@@ -7,7 +7,7 @@ positions, bit offsets) is a static schedule.  The encode kernel only has to
 produce code values; packing and unpacking are static-offset arithmetic.
 
 ``Schedule``, ``emission_schedule`` and ``recover_counts`` stay numpy on the
-host, as in the JAX package.  ``pack_variable`` and
+host, as in the JAX package, and ``unpack_variable`` is its host unpack.  ``pack_variable`` and
 ``unpack_variable_device`` were XLA glue there and are torch ops here, run on
 the device of the tensors they are given: one scatter-add (pack) or gather
 (unpack) per byte lane over per-ordinal offset tables, in place of the JAX
@@ -26,7 +26,7 @@ from lzw_tpu_torch.spec import LzwSpec, MAX_WIDTH
 
 __all__ = [
     "Schedule", "emission_schedule", "pack_variable", "recover_counts",
-    "unpack_variable_device",
+    "unpack_variable", "unpack_variable_device",
 ]
 
 
@@ -348,3 +348,21 @@ def unpack_variable_device(payloads: torch.Tensor, counts: torch.Tensor,
     vals = torch.where(sel, vals, 0)
     bad = sel & ((vals == spec.clear_code) | (vals == spec.end_code))
     return vals.to(torch.int32), ~bad.any(dim=1)
+
+
+def unpack_variable(payloads, plens, spec: LzwSpec):
+    """Unpack strict streams to dense data codes + validation flags (host).
+
+    ``payloads`` u8[N, PB] (zero past each stream's length) and ``plens``
+    [N] byte lengths, numpy.  Returns numpy (dense i32[N, S], counts
+    i32[N], strict bool[N]).  ``strict`` is False when the stream deviates
+    from the static schedule (early CLEAR, missing EOI, width drift):
+    callers must fall back to the general decoder for those streams.
+    :func:`recover_counts`, then :func:`unpack_variable_device` on the CPU.
+    """
+    counts, strict, S = recover_counts(payloads, plens, spec)
+    dense, data_ok = unpack_variable_device(
+        torch.from_numpy(np.ascontiguousarray(payloads, np.uint8)),
+        torch.from_numpy(counts.astype(np.int32)), spec, S)
+    return (dense.numpy(), counts.astype(np.int32),
+            strict & data_ok.numpy())

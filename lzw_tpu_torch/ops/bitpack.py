@@ -21,7 +21,9 @@ The numpy half is a copy of the JAX package's; the torch half replaces its
 of the tensors it is given.  No codec path of the port calls this module
 (the encoders pack with :mod:`lzw_tpu_torch.kernels.schedule` and
 ``kernels.encode.pack12``): it is the counterpart of
-``lzw_tpu.ops.bitpack``'s public functions for callers of that module.
+``lzw_tpu.ops.bitpack``'s public functions for callers of that module,
+and :func:`pack_codes_torch` packs the slots of
+:func:`lzw_tpu_torch.ops.encode.encode_block`.
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from lzw_tpu_torch.kernels.schedule import _scatter_symbols
 from lzw_tpu_torch.spec import Endianness
 
 __all__ = [
@@ -109,39 +112,42 @@ def unpack_fixed_np(
 def pack_codes_torch(codes: torch.Tensor, widths: torch.Tensor,
                      endianness: Endianness, out_bytes: int):
     """Pack on the codes' device into a buffer of a given size
-    (``pack_codes_jax``).
+    (``pack_codes_jax``, and ``jax.vmap`` of it for rows).
 
     Args:
-      codes:  i32[N] code values (holes allowed).
-      widths: i32[N] bit widths, 0 marks a hole.
+      codes:  i32[S] code values (holes allowed), or i32[N, S] rows.
+      widths: i32[S] or i32[N, S] bit widths, 0 marks a hole.
       endianness: the bit order.
-      out_bytes: output buffer size; at least ceil(sum(widths) / 8).
+      out_bytes: output buffer size per row; at least ceil(sum(widths) / 8).
 
     Returns:
       (u8[out_bytes] buffer zero-padded past the stream, i64 scalar tensor
-      n_valid_bytes).  Bytes past ``out_bytes`` are dropped.
+      n_valid_bytes), or for rows (u8[N, out_bytes], i64[N]).  Bytes past
+      ``out_bytes`` are dropped.
+
+    Each code's bits are added at its bit offset by
+    ``kernels.schedule._scatter_symbols``, the byte-lane scatter of the
+    encoders' packer, into rows of ``out_bytes`` + 3 bytes: a code that
+    starts past the buffer is moved to its end, so its three lanes land in
+    the three slack bytes, which are dropped.
     """
-    codes = codes.to(torch.int64)
-    widths = widths.to(torch.int64)
-    offsets = torch.cumsum(widths, 0) - widths
-    n_bytes = (widths.sum() + 7) >> 3
-
-    valid = widths > 0
-    masked = torch.where(valid, codes & ((1 << widths) - 1), 0)
-    byte_idx = offsets >> 3
-    shift = offsets & 7
-    if endianness is Endianness.LITTLE:
-        window = masked << shift
-        lanes = (window & 0xFF, (window >> 8) & 0xFF, (window >> 16) & 0xFF)
-    else:
-        window = torch.where(valid, masked << (24 - widths - shift), 0)
-        lanes = ((window >> 16) & 0xFF, (window >> 8) & 0xFF, window & 0xFF)
-
-    out = torch.zeros(out_bytes + 2, dtype=torch.int64, device=codes.device)
-    for lane, vals in enumerate(lanes):
-        out.scatter_add_(0, torch.clamp(byte_idx + lane, max=out_bytes + 1),
-                         vals)
-    return out[:out_bytes].to(torch.uint8), n_bytes
+    one = codes.dim() == 1
+    if one:
+        codes, widths = codes[None], widths[None]
+    # A hole's mask (1 << 0) - 1 is 0, so it adds nothing.
+    vals = codes.to(torch.int64) & ((1 << widths) - 1)
+    n_bytes = (widths.sum(1, dtype=torch.int64) + 7) >> 3
+    off = torch.cumsum(widths, 1, dtype=torch.int64)
+    off -= widths
+    off.clamp_(max=8 * out_bytes)
+    out = torch.zeros((codes.shape[0], out_bytes + 3), dtype=torch.int64,
+                      device=codes.device)
+    _scatter_symbols(out, vals, widths, off,
+                     endianness is Endianness.LITTLE)
+    out = out[:, :out_bytes].to(torch.uint8)
+    if one:
+        return out[0], n_bytes[0]
+    return out, n_bytes
 
 
 def unpack_fixed_torch(data: torch.Tensor, width: int,

@@ -1,15 +1,23 @@
-"""Single-stream LZW encode, and the static compressed-size bound.
+"""Per-block and single-stream LZW encode, and the static size bound.
 
-Port of ``lzw_tpu/ops/encode.py``.  The JAX package encodes one stream with
+Port of ``lzw_tpu/ops/encode.py``.  The JAX package encodes a block with
 its own XLA scan (``encode_block``: a hash-table dictionary, two (code,
 width) slots per input byte) and packs the slots with
 ``bitpack.pack_codes_jax``.  The port has no second parse: the block
 container's kernel ``csrc/encode_parse.cu``
 (:func:`lzw_tpu_torch.kernels.encode.encode_blocks_codes`) takes a block of
-any length and gives the same dense codes, so :func:`encode_stream_bytes`
-launches it on one row and packs the codes against the static width
-schedule (:func:`lzw_tpu_torch.kernels.schedule.pack_variable`) or in
-12-bit pairs (:func:`lzw_tpu_torch.kernels.encode.pack12`).
+any length and gives the same dense codes.
+
+* :func:`encode_block` keeps the JAX function's slot contract: the parse
+  kernel's positions instance reports the byte that emitted each code, a
+  code's width and the CLEARs after it come from the static schedule
+  (:func:`lzw_tpu_torch.kernels.schedule.emission_schedule`), and the codes
+  are scattered into their slots; :func:`lzw_tpu_torch.ops.bitpack.
+  pack_codes_torch` packs them.
+* :func:`encode_stream_bytes` launches the kernel on one row and packs the
+  dense codes against the schedule
+  (:func:`lzw_tpu_torch.kernels.schedule.pack_variable`) or in 12-bit pairs
+  (:func:`lzw_tpu_torch.kernels.encode.pack12`), with no slots.
 """
 
 from __future__ import annotations
@@ -23,12 +31,21 @@ from lzw_tpu_torch.spec import (
     MAX_TABLE_SIZE, MAX_WIDTH, Endianness, LzwSpec, UnexpectedCodeError,
 )
 
-__all__ = ["MAX_STREAM", "encode_stream_bytes", "encoder_output_slots",
+__all__ = ["ERR_NONE", "ERR_UNEXPECTED_CODE", "MAX_ROW", "MAX_STREAM",
+           "encode_block", "encode_stream_bytes", "encoder_output_slots",
            "packed_bound"]
+
+# Error kinds reported in encode_block's result (the host raises the typed
+# exceptions).
+ERR_NONE = 0
+ERR_UNEXPECTED_CODE = 1
 
 # The longest stream encode_stream_bytes takes: the parse kernel's block
 # length and its dense code count are i32.
 MAX_STREAM = 2**31 - 2
+# The longest row encode_block takes: its 2 * B + 3 slots are indexed by
+# i32.
+MAX_ROW = 2**30 - 2
 
 
 def encoder_output_slots(block_size: int) -> int:
@@ -52,6 +69,99 @@ def packed_bound(block_size: int, spec: LzwSpec) -> int:
     else:
         bits = MAX_WIDTH * (block_size + 1)
     return (bits + 7) // 8 + 1
+
+
+def encode_block(blocks: torch.Tensor, n_valid: torch.Tensor, spec: LzwSpec,
+                 hash_bits: int = 13, fix_eoi_width: bool = False) -> dict:
+    """Encode rows of bytes into (code, width) slots, the contract of the
+    JAX package's ``encode_block`` under ``jax.vmap``.
+
+    Args:
+      blocks:  u8[N, B] input bytes, padded past ``n_valid``.
+      n_valid: i32[N] valid leading bytes per row (<= B).
+      spec:    the wire format.
+      hash_bits: accepted for the JAX signature and ignored: it sizes the
+        JAX scan's hash table, and no output depends on it.
+      fix_eoi_width: when True, widen the trailing EOI by one bit where the
+        decoder-side width bump lands exactly on the final data code (see
+        ``lzw_tpu_torch.ops.reference.eoi_width_quirk``), as the block
+        container does; False is bit-exact with the reference.
+
+    Returns a dict of ``codes`` and ``widths`` i32[N, S] with ``S =
+    encoder_output_slots(B)``, and ``error``, ``error_code`` and
+    ``error_pos`` i32[N].  Slot layout, variable specs: slot 0 the head
+    CLEAR; the miss at byte i in slot 1 + 2i and a reset CLEAR after it in
+    2 + 2i; the final prefix in 2B + 1 and EOI in 2B + 2.  Fixed-12: the
+    miss at byte i in 2i (2i + 1 always empty), the final prefix in 2B,
+    then two empty pads.  Width 0 marks an empty slot, which the packer
+    skips.  On an error (a byte past the alphabet at index >= 1, variable
+    specs only) the head, the final prefix and EOI are empty and the slots
+    emitted before the bad byte keep their widths.
+
+    One deviation from the JAX function: an empty miss slot's code is 0
+    here, where the JAX scan writes its running prefix; neither is part of
+    the contract.  Every width, every code of a non-empty slot, every
+    reset-CLEAR slot's code (``clear_code``; 0 for fixed) and the errors
+    are the JAX function's.
+
+    CUDA rows run the encode-parse kernel's positions instance, CPU rows
+    its plain version; any other device raises.  Raises ValueError for
+    rows longer than :data:`MAX_ROW`.
+    """
+    spec.validate()
+    B = blocks.shape[-1]
+    if B > MAX_ROW:
+        raise ValueError(f"rows of {B} bytes are past the {MAX_ROW} whose "
+                         "slots an i32 indexes")
+    dense, counts, err, err_code, pos = encode_blocks_codes(
+        blocks, n_valid, spec, positions=True)
+    N, dev = blocks.shape[0], blocks.device
+    S = encoder_output_slots(B)
+    variable = spec.variable
+    live = torch.arange(B + 1, device=dev)[None, :] < counts[:, None]
+    body = pos < n_valid[:, None]
+    # Each code's slot: its byte's miss slot, or the tail for the final
+    # prefix (at byte n_valid).  Codes past the count are 0 and land on the
+    # last slot: EOI, written below, or fixed-12's empty pad.
+    slot = pos.to(torch.int64)
+    del pos
+    slot.mul_(2)
+    if variable:
+        slot.add_(1)
+    slot.masked_fill_(~body, 2 * B + 1 if variable else 2 * B)
+    slot.masked_fill_(~live, S - 1)
+    codes = torch.zeros((N, S), dtype=torch.int32, device=dev)
+    widths = torch.zeros((N, S), dtype=torch.int32, device=dev)
+    codes.scatter_(1, slot, dense)
+    del dense
+    ok = err == ERR_NONE
+    if variable:
+        # Code m's width, the codes followed by a reset CLEAR, and the EOI
+        # width after m codes, from the static schedule.
+        tabs = _sched._device_tables(spec, B + 1, fix_eoi_width, dev)
+        widths.scatter_(1, slot, torch.where(
+            live, tabs["widths"].to(torch.int32)[None, :], 0))
+        # A reset CLEAR follows its miss; every such slot holds clear_code.
+        codes[:, 2 : 2 * B + 1 : 2] = spec.clear_code
+        cm = tabs["clear_m"]
+        rows, k = torch.nonzero(live[:, cm] & body[:, cm], as_tuple=True)
+        widths[rows, slot[rows, cm[k]] + 1] = MAX_WIDTH
+        codes[:, 0] = spec.clear_code
+        widths[:, 0] = torch.where(ok, spec.initial_width, 0)
+        codes[:, S - 1] = spec.end_code
+        widths[:, S - 1] = torch.where(ok, tabs["eoi_w"][counts.long()], 0)
+        # The first byte past the alphabet after the first (the kernel
+        # stops there).
+        at = torch.arange(B, device=dev)[None, :]
+        bad = ((blocks > spec.max_code_value) & (at >= 1)
+               & (at < n_valid[:, None]))
+        error_pos = torch.where(bad.any(dim=1),
+                                bad.to(torch.uint8).argmax(dim=1), 0)
+    else:
+        widths.scatter_(1, slot, live.to(torch.int32).mul_(MAX_WIDTH))
+        error_pos = torch.zeros(N, dtype=torch.int64, device=dev)
+    return {"codes": codes, "widths": widths, "error": err,
+            "error_code": err_code, "error_pos": error_pos.to(torch.int32)}
 
 
 def encode_stream_bytes(data: bytes, spec: LzwSpec,

@@ -25,7 +25,8 @@ from lzw_tpu_torch.spec import LzwSpec, MAX_TABLE_SIZE, UnexpectedCodeError
 
 __all__ = ["spliced_nonstrict_stream", "EncodeCase", "Pass1Case",
            "encode_edge_cases", "pass1_edge_cases", "CHAIN_COUNTS",
-           "check_edge_cases", "StreamCase", "stream_edge_cases",
+           "check_edge_cases", "same_slots",
+           "StreamCase", "stream_edge_cases",
            "stream_edge_rows", "check_stream_edge_cases"]
 
 
@@ -307,17 +308,22 @@ def _counted(name: str, fn):
 def check_edge_cases(device) -> tuple[int, int]:
     """Every case of :func:`encode_edge_cases` and :func:`pass1_edge_cases`
     through the wrappers on ``device`` against the plain versions, exact,
-    pass 1 with every row kind; each wrapper call must count one launch.
-    Raises AssertionError naming the case; returns the numbers of encode
-    and pass-1 cases."""
+    the encode parse in both instances (without and with positions, against
+    one plain run with positions) and pass 1 with every row kind; each
+    wrapper call must count one launch.  Raises AssertionError naming the
+    case; returns the numbers of encode and pass-1 cases."""
     enc = encode_edge_cases()
     for c in enc:
         blocks = torch.from_numpy(c.blocks).to(device)
         lens = torch.from_numpy(c.lens).to(device)
+        want = _enc.encode_blocks_codes_reference(blocks, lens, c.spec,
+                                                  positions=True)
         got = _counted("encode_parse", lambda: _enc.encode_blocks_codes(
             blocks, lens, c.spec))
-        _same("encode_parse", c.label, got,
-              _enc.encode_blocks_codes_reference(blocks, lens, c.spec))
+        _same("encode_parse", c.label, got, want[:4])
+        got = _counted("encode_parse", lambda: _enc.encode_blocks_codes(
+            blocks, lens, c.spec, positions=True))
+        _same("encode_parse positions", c.label, got, want)
     p1 = pass1_edge_cases()
     for c in p1:
         args = (torch.from_numpy(c.codes).to(device),
@@ -333,6 +339,16 @@ def check_edge_cases(device) -> tuple[int, int]:
                            lambda: _dec.decode_pass1(*args, rows=rows))
             _same("decode_pass1", f"{c.label} rows={rows}", got, want[rows])
     return len(enc), len(p1)
+
+
+def same_slots(label: str, got: dict, want: dict) -> None:
+    """Two results of ``ops.encode.encode_block`` on the same rows (the
+    card's and the CPU's): every array equal, which holds the contract's
+    tolerance (widths and the errors exactly, codes where a width is not
+    0) and more.  Raises AssertionError naming the first that differs."""
+    for key in ("codes", "widths", "error", "error_code", "error_pos"):
+        if not torch.equal(got[key].cpu(), want[key].cpu()):
+            raise AssertionError(f"encode_block {label}: {key} differs")
 
 
 # ---- the single-stream decoder (lzw_tpu_torch.ops.decode) ----------------

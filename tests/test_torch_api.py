@@ -202,12 +202,15 @@ class TestBackendDispatch:
         assert auto.encode(lorem_ipsum) == lorem_ipsum_encoded
         assert auto.decode(lorem_ipsum_encoded) == lorem_ipsum
 
-    def test_auto_is_the_oracle_without_the_runtime(self, monkeypatch,
-                                                    lorem_ipsum_encoded):
+    def test_auto_is_torch_without_the_runtime(self, monkeypatch,
+                                               lorem_ipsum,
+                                               lorem_ipsum_encoded):
         monkeypatch.setattr(api, "native_available", lambda: False)
-        codec = TiffCodec()
-        assert codec.backend == "oracle"
-        assert GifCodec(7).decode(lorem_ipsum_encoded)
+        codec = GifCodec(7, device="cpu")
+        assert codec.backend == "torch"
+        assert codec.device == torch.device("cpu")
+        assert codec.encode(lorem_ipsum) == lorem_ipsum_encoded
+        assert codec.decode(lorem_ipsum_encoded) == lorem_ipsum
 
     def test_jax_backend_is_not_ported(self):
         with pytest.raises(ValueError, match="counterpart .* is backend "

@@ -22,6 +22,8 @@ from lzw_tpu_torch.kernels import ablate, build, probe
 from lzw_tpu_torch.kernels import decode as tdec
 from lzw_tpu_torch.kernels import encode as tenc
 from lzw_tpu_torch.kernels import schedule as tsched
+from lzw_tpu_torch.ops import bitpack as tbitpack
+from lzw_tpu_torch.ops import encode as tencode
 from lzw_tpu_torch.utils import testdata
 from lzw_tpu_torch.utils.corpus import load_corpus
 
@@ -212,10 +214,41 @@ def test_chain_edge_cases_match_plain(cuda):
     # of one CTA that finish at different times, partly filled CTAs, more
     # blocks than one round of chains, full tables, resets, KwKwK runs,
     # errors, and the words past each block's stop that the warp writes
-    # together; pass 1 with every row kind.
+    # together; the encode parse with and without positions, pass 1 with
+    # every row kind.
     n_enc, n_pass1 = testdata.check_edge_cases(cuda)
     assert (n_enc, n_pass1) == (len(testdata.encode_edge_cases()),
                                 len(testdata.pass1_edge_cases()))
+
+
+@pytest.mark.parametrize("name", list(SPECS))
+def test_encode_block_on_card(name, cuda):
+    """The encode-parse kernel's positions instance against its plain
+    version on 64 x 8 KiB rows (its edge cases are
+    test_chain_edge_cases_match_plain's), and encode_block and
+    pack_codes_torch on the card against the CPU, fix_eoi both ways."""
+    spec = SPECS[name]
+    mat, lens = _blocks(spec, 64, 8192, seed=3)
+    blocks, lens_t = torch.from_numpy(mat), torch.from_numpy(lens)
+    got = tenc.encode_blocks_codes(blocks.to(cuda), lens_t.to(cuda), spec,
+                                   positions=True)
+    want = tenc.encode_blocks_codes_reference(blocks, lens_t, spec,
+                                              positions=True)
+    for g, w in zip(got, want, strict=True):
+        assert torch.equal(g.cpu(), w)
+    out_bytes = tencode.packed_bound(8192, spec)
+    for fix in (False, True):
+        on_card = tencode.encode_block(blocks.to(cuda), lens_t.to(cuda), spec,
+                                       fix_eoi_width=fix)
+        on_cpu = tencode.encode_block(blocks, lens_t, spec,
+                                      fix_eoi_width=fix)
+        testdata.same_slots(f"{name} fix={fix}", on_card, on_cpu)
+        b_card, n_card = tbitpack.pack_codes_torch(
+            on_card["codes"], on_card["widths"], spec.endianness, out_bytes)
+        b_cpu, n_cpu = tbitpack.pack_codes_torch(
+            on_cpu["codes"], on_cpu["widths"], spec.endianness, out_bytes)
+        assert torch.equal(b_card.cpu(), b_cpu)
+        assert torch.equal(n_card.cpu(), n_cpu)
 
 
 def test_container_round_trip_on_card(cuda):
