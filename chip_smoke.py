@@ -8,7 +8,7 @@ Run from the repository root, with no arguments::
 Phases, one line each, any failure exits non-zero:
 
 1. device: the CUDA card's name and ``nvidia-smi`` name and power limit;
-2. build: compiles the eleven CUDA kernels from
+2. build: compiles the thirteen CUDA kernels from
    ``lzw_tpu_torch/kernels/csrc`` (nvcc, sm_90a) and the native runtime
    from ``lzw_tpu_torch/native``, all at once;
 3. kernel vs plain: the encode-parse kernel, pass 1 with its stride-2 and
@@ -106,7 +106,15 @@ Phases, one line each, any failure exits non-zero:
    exact, each kernel timed through its wrapper and alone, with ns a code
    and its share of its bound; then both kernels against their plain
    versions on the edge-case rows of ``testdata.stream_edge_cases`` in
-   six flavors;
+   six flavors; then the single-stream encode kernel ``stream_encode``
+   (each ``"torch"`` facade encode counted to launch it once and
+   ``encode_parse`` never): on each facade's 16 MiB stream and on the
+   text tiled to 16 MiB, the facade encode stage by stage (H2D, kernel,
+   pack, D2H) == native, the kernel against its plain version exactly,
+   with ns a byte, its bound and its chain floor, and ``encode_parse`` on
+   the same one row; both kernels on 32 x 1 MiB gif7 rows; the kernel on
+   the edge rows of ``testdata.stream_encode_edge_cases`` in five
+   flavors;
 15. the JAX package's per-block encode (``lzw_tpu_torch.ops.encode.
    encode_block``): on phase 3's rows ``encode_block`` on the card against
    the CPU; then ``pack_codes_torch(encode_block(...))`` on 2048 x
@@ -181,6 +189,12 @@ KERNEL_SOURCES = {
     "decode_pass2_stride1": (
         "lzw_tpu_torch/kernels/csrc/decode_pass2_stride1.cu",
         "lzw_tpu/kernels/decode_pallas.py:1085"),
+    # No TPU kernel: the XLA scan of the JAX package's encode_block at the
+    # facades' one row (phase 14).
+    "stream_encode": ("lzw_tpu_torch/kernels/csrc/stream_encode.cu",
+                      "lzw_tpu/ops/encode.py:186 (no pallas_call: "
+                      "encode_block's lax.scan at the facades' one row, "
+                      "lzw_tpu/api.py:150; its probe loop :119)"),
     # No TPU kernel: the two lax.while_loops of the JAX package's XLA
     # single-stream decoder (phase 14).
     "stream_pass1": ("lzw_tpu_torch/kernels/csrc/stream_pass1.cu",
@@ -1594,6 +1608,7 @@ def run_stream_facades(image: bytes, smi: str, device,
     from lzw_tpu_torch import (
         Endianness, FixedCodec, GifCodec, LzwCodec, LzwSpec, TiffCodec,
     )
+    from lzw_tpu_torch.kernels import build
 
     lorem = (ROOT / "test-assets" / "lorem_ipsum.txt").read_bytes()
     golden = (ROOT / "test-assets" / "lorem_ipsum_encoded.bin").read_bytes()
@@ -1622,7 +1637,12 @@ def run_stream_facades(image: bytes, smi: str, device,
             t[name] = time.perf_counter() - t0
             return out
 
+        before = dict(build.LAUNCHES)
         enc = timed("encode", lambda: codec.encode(data))
+        ran = {k: build.LAUNCHES[k] - before[k]
+               for k in ("stream_encode", "encode_parse")}
+        if ran != {"stream_encode": 1, "encode_parse": 0}:
+            raise AssertionError(f"torch {label} encode launched {ran}")
         if enc != native.encode(data):
             raise AssertionError(f"torch facade {label}: bytes != native")
         streams[label] = (codec.spec, enc)
@@ -1718,6 +1738,141 @@ def run_stream_container(spec, data: bytes, block: int, label: str,
         f"{stream_peak(spec, len(payloads), m, block) / MiB:.1f}); {smi}")
     stage_line(label, "pass2='device' decode", stages, mib)
     return [l_enc, l_dec], payloads
+
+
+def synced_stages(times: dict):
+    """A ``stage(name)`` context manager that records each stage's seconds
+    in ``times``, synchronising the card around it."""
+    import contextlib
+
+    import torch
+
+    @contextlib.contextmanager
+    def stage(name):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        yield
+        torch.cuda.synchronize()
+        times[name] = time.perf_counter() - t0
+
+    return stage
+
+
+def run_stream_encode(image: bytes, smi: str, device,
+                      facade: int = 16 * MiB, rows: int = 32,
+                      row: int = 1 << 20) -> dict[str, Result]:
+    """Phase 14c: the single-stream encode kernel ``stream_encode`` on
+    ``device``.  On each facade's ``facade`` bytes (gif7, TIFF, fixed-12 LE
+    and BE of the image plane, gif7 of the text tiled): the ``"torch"``
+    facade encode stage by stage (``enc_h2d``, ``enc_kernel``,
+    ``enc_pack``, ``enc_d2h``, each synchronised) == native's bytes; the
+    kernel on the stream's one row against its plain version, every array
+    exact, by CUDA events, with ns a byte, its bytes bound and its chain
+    floor (one dependent shared load a byte, the load's latency from
+    ``chain_probe``); ``encode_parse`` on the same row, equal to it and
+    timed once.  Then both kernels on ``rows`` x ``row`` gif7 rows of the
+    image plane (phase 14b's container rows), ``stream_encode`` == plain;
+    then the edge rows of ``testdata.stream_encode_edge_cases`` in five
+    flavors.  Returns {"stream_encode": Result on the gif7 image stream}."""
+    import numpy as np
+    import torch
+
+    from lzw_tpu_torch import Endianness, LzwCodec, LzwSpec
+    from lzw_tpu_torch.kernels import encode as tenc
+    from lzw_tpu_torch.kernels import probe
+    from lzw_tpu_torch.ops import encode as senc
+    from lzw_tpu_torch.scripts import chain_probe
+    from lzw_tpu_torch.utils import testdata
+    from lzw_tpu_torch.utils.card import cuda_ms, events_ms
+
+    t_phase = time.perf_counter()
+    host, start = chain_probe.table("load")
+    tab = torch.from_numpy(host).to(device)
+    steps = 1 << 20
+    load_ns = cuda_ms(lambda: probe.chain_steps(tab, start, "load", 1,
+                                                steps), 1) * 1e6 / steps
+    text = tile((ROOT / "test-assets" / "lorem_ipsum.txt").read_bytes(),
+                facade)
+    fixed_le, fixed_be = (LzwSpec.fixed(Endianness.LITTLE),
+                          LzwSpec.fixed(Endianness.BIG))
+    out = {}
+    for label, spec, data in (
+            ("gif7 image", LzwSpec.gif(7), image[:facade]),
+            ("tiff image", LzwSpec.tiff(), image[:facade]),
+            ("fixed-12 LE image", fixed_le, image[:facade]),
+            ("fixed-12 BE image", fixed_be, image[:facade]),
+            ("gif7 text", LzwSpec.gif(7), text)):
+        mib = len(data) / MiB
+        stages = {}
+        wall, enc = once_ms(lambda: senc.encode_stream_bytes(
+            data, spec, device=device, stage=synced_stages(stages)))
+        if enc != LzwCodec(spec, "native").encode(data):
+            raise AssertionError(f"{label}: facade encode != native")
+        mat = np.zeros((1, -(-len(data) // 16) * 16), np.uint8)
+        mat[0, : len(data)] = np.frombuffer(data, np.uint8)
+        blocks_h = torch.from_numpy(mat)
+        lens_h = torch.tensor([len(data)], dtype=torch.int32)
+        blocks, lens = blocks_h.to(device), lens_h.to(device)
+        got = tenc.encode_stream_codes(blocks, lens, spec)
+        plain_ms, want = once_ms(lambda: tenc.encode_blocks_codes_reference(
+            blocks_h, lens_h, spec))
+        # One timed call after a warm-up: a call takes about a second.
+        ms = cuda_ms(lambda: tenc.encode_stream_codes(blocks, lens, spec), 1)
+        codes = int(want[1][0])
+        # The stream in, 4 B a code out, the count and the two errors.
+        res = result(max_abs_err(got, want), ms, plain_ms,
+                     len(data) + 4 * codes + 12, 0)
+        if res.err:
+            raise AssertionError(f"{label}: stream_encode != plain, "
+                                 f"max_abs_err {res.err}")
+        if label == "gif7 image":
+            out["stream_encode"] = res
+        old = ""
+        if label != "fixed-12 BE image":  # the LE row's parse
+            if max_abs_err(tenc.encode_blocks_codes(blocks, lens, spec),
+                           got):
+                raise AssertionError(f"{label}: encode_parse != "
+                                     "stream_encode")
+            parse_ms = events_ms([lambda: tenc.encode_blocks_codes(
+                blocks, lens, spec)])
+            old = (f"; encode_parse on the same row {parse_ms:.4f} ms "
+                   f"({parse_ms * 1e6 / len(data):.2f} ns a byte, "
+                   f"{parse_ms / ms:.2f}x), == stream_encode")
+        say("stream", f"{label} {mib:.0f} MiB, {codes} codes: stream_encode "
+            f"{ms:.4f} ms ({ms * 1e6 / len(data):.2f} ns a byte) == plain "
+            f"exactly (plain {plain_ms:.1f} ms); bound {res.bound_ms:.5f} "
+            f"ms by bytes, chain floor {(len(data) - 1) * load_ns / 1e6:.1f}"
+            f" ms ({load_ns:.2f} ns a dependent shared load)" + old
+            + f"; torch facade encode {mib / wall * 1e3:.2f} MiB/s == "
+            "native, stages " + ", ".join(
+                f"{k} {v * 1e3:.2f} ms" for k, v in stages.items())
+            + f"; {smi}")
+    gif7 = LzwSpec.gif(7)
+    mat = np.frombuffer(image[: rows * row], np.uint8).reshape(rows, row)
+    blocks_h = torch.from_numpy(mat.copy())
+    lens_h = torch.full((rows,), row, dtype=torch.int32)
+    blocks, lens = blocks_h.to(device), lens_h.to(device)
+    got = tenc.encode_stream_codes(blocks, lens, gif7)
+    plain_ms, want = once_ms(lambda: tenc.encode_blocks_codes_reference(
+        blocks_h, lens_h, gif7))
+    err = max_abs_err(got, want)
+    if err or max_abs_err(tenc.encode_blocks_codes(blocks, lens, gif7),
+                          want):
+        raise AssertionError(f"{rows} x {row} B gif7 rows: a kernel != "
+                             f"plain (stream_encode max_abs_err {err})")
+    ms = cuda_ms(lambda: tenc.encode_stream_codes(blocks, lens, gif7))
+    parse_ms = cuda_ms(lambda: tenc.encode_blocks_codes(blocks, lens, gif7))
+    say("stream", f"{rows} x {row} B gif7 image rows: stream_encode "
+        f"{ms:.4f} ms ({ms * 1e6 / row:.2f} ns a byte of a row), "
+        f"encode_parse {parse_ms:.4f} ms ({parse_ms * 1e6 / row:.2f}), both "
+        f"== plain exactly (plain {plain_ms:.1f} ms); {smi}")
+    specs = [LzwSpec.gif(2), gif7, LzwSpec.tiff(), fixed_le, fixed_be]
+    n = testdata.check_stream_encode_edge_cases(device, specs)
+    say("stream", f"encode edge cases: {n} rows of {len(specs)} flavors "
+        "(testdata.stream_encode_edge_cases, one launch a flavor), "
+        "stream_encode == plain exactly; phase 14c "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return out
 
 
 def stream_rows(streams: list[bytes]):
@@ -1881,9 +2036,9 @@ def run_stream(image: bytes, smi: str, device, facade: int = 16 * MiB,
 
     _, streams, l_fac = timed_run(
         lambda: run_stream_facades(image, smi, device, facade),
-        {"encode_parse": 1, "stream_pass1": 1, "stream_pass2": 1,
-         "decode_pass1": 0, "decode_blocks": 0, "apply_words": 0},
-        "torch facades")
+        {"stream_encode": 1, "encode_parse": 0, "stream_pass1": 1,
+         "stream_pass2": 1, "decode_pass1": 0, "decode_blocks": 0,
+         "apply_words": 0}, "torch facades")
     launches = [l_fac]
     batches = {}
     for spec, block, label in (
@@ -1925,6 +2080,7 @@ def run_stream(image: bytes, smi: str, device, facade: int = 16 * MiB,
         "(testdata.stream_edge_cases, one launch a flavor), stream_pass1 "
         "and stream_pass2 == plain exactly, pass 2 at two output bounds; "
         f"{time.perf_counter() - t0:.1f} s")
+    full.update(run_stream_encode(image, smi, device, facade))
     return launches, full
 
 
@@ -2191,8 +2347,8 @@ def main(stream_only: bool = False) -> int:
     # 11. The single-stream facades (host runtime; no kernel may launch).
     timed_run(lambda: run_facades(image),
               {"encode_parse": 0, "decode_pass1": 0, "word_ends": 0,
-               "decode_pass2": 0, "stream_pass1": 0, "stream_pass2": 0},
-              "facades")
+               "decode_pass2": 0, "stream_encode": 0, "stream_pass1": 0,
+               "stream_pass2": 0}, "facades")
 
     # 12. The entry module.
     add(run_entry())

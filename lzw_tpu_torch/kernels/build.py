@@ -34,17 +34,19 @@ import threading
 from lzw_tpu_torch.utils import cache
 
 __all__ = ["KERNELS", "LAUNCHES", "BuildError", "find_nvcc", "load",
-           "reset_counts", "check_launch", "require_tensor"]
+           "library_path", "reset_counts", "check_launch", "require_tensor"]
 
 _HERE = pathlib.Path(__file__).resolve().parent
 CSRC = _HERE / "csrc"
 BUILD_DIR = _HERE / "build"
 KERNELS = ("encode_parse", "decode_pass1", "word_ends", "decode_pass2",
            "decode_pass2_stride1",
-           # The single-stream decoder of lzw_tpu_torch.ops.decode.
-           "stream_pass1", "stream_pass2",
-           # The probes and ablations of the JAX package's scripts.
-           "ablate_parse", "ablate_ring", "probe_scan", "probe_gather")
+           # The single-stream codec of lzw_tpu_torch.ops.
+           "stream_encode", "stream_pass1", "stream_pass2",
+           # The probes and ablations of the JAX package's scripts, and
+           # the chain-step probe of the encode kernels.
+           "ablate_parse", "ablate_ring", "probe_scan", "probe_gather",
+           "chain_probe")
 DEFAULT_NVCC = "/usr/local/cuda/bin/nvcc"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
@@ -103,6 +105,12 @@ def load(name: str) -> ctypes.CDLL:
             except OSError as exc:
                 raise BuildError(f"cannot load kernel {name}: {exc}") from exc
         return _libs[name]
+
+
+def library_path(name: str) -> pathlib.Path:
+    """The path of kernel ``name``'s library, compiled on first use."""
+    load(name)
+    return _compile(name)
 
 
 def reset_counts() -> None:

@@ -1,4 +1,5 @@
-"""Launch geometry of the one-chain-per-warp kernels.
+"""Launch geometry of the one-chain-per-warp kernels, and the CTA of the
+single-stream encode kernel.
 
 ``csrc/encode_parse.cu`` and ``csrc/decode_pass1.cu`` run one LZW block's
 chain per warp, with the block's dictionary and a small staging window of
@@ -19,8 +20,9 @@ import torch
 
 from lzw_tpu_torch.kernels import build
 
-__all__ = ["Layout", "LAYOUTS", "MAX_SHARED_BYTES", "Geometry", "geometry",
-           "ctas_per_sm", "launch_geometry", "chains_in_flight"]
+__all__ = ["Layout", "LAYOUTS", "StreamEncodeLayout", "STREAM_ENCODE",
+           "MAX_SHARED_BYTES", "Geometry", "geometry", "ctas_per_sm",
+           "launch_geometry", "chains_in_flight"]
 
 # Dynamic shared memory one CTA may use on Hopper (227 KB).
 MAX_SHARED_BYTES = 232448
@@ -41,6 +43,21 @@ LAYOUTS = {
     # Two u32 planes of 4096 codes and a 3 x 34-int window: 7 chains per SM.
     "decode_pass1": Layout(7, 2 * 4 * 4096 + 4 * 3 * 34),
 }
+
+
+class StreamEncodeLayout(NamedTuple):
+    """``csrc/stream_encode.cu``'s CTA, one a row: ``threads`` threads (one
+    runs the chain, all zero the tables) and ``shared_bytes`` of dynamic
+    shared memory; its launch function refuses any other."""
+
+    threads: int
+    shared_bytes: int
+
+
+# The source's kThreads and kSharedBytes: the hash (16384 u64 slots), the
+# input ring (4 chunks of 4 KiB) and the 16-byte slot of the table's
+# address; every flavor takes the same CTA, one an SM.
+STREAM_ENCODE = StreamEncodeLayout(128, 8 * 16384 + 4 * 4096 + 16)
 
 _ctas: dict[tuple[str, int], int] = {}
 _ctas_lock = threading.Lock()

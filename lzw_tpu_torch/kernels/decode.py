@@ -364,7 +364,7 @@ class VariablePass1(NamedTuple):
 
 
 def variable_pass1(payloads_np: np.ndarray, plens_np, spec: LzwSpec,
-                   block_size: int, device="cpu", rows: str = "none",
+                   block_size: int, device="cuda", rows: str = "none",
                    stage=None, prep=None) -> VariablePass1:
     """Strict variable-flavor pass 1 from payload bytes
     (``_variable_pass1_from_payloads``): host count recovery, H2D, device
@@ -399,7 +399,7 @@ def variable_pass1(payloads_np: np.ndarray, plens_np, spec: LzwSpec,
 
 
 def decode_pass1_variable(payloads_np: np.ndarray, plens_np, spec: LzwSpec,
-                          block_size: int, device="cpu"):
+                          block_size: int, device="cuda"):
     """Variable-flavor strict-stream pass 1 (``decode_pass1_variable_tpu``).
 
     Returns (words i32[N, S], n_codes i64[N], totals, err, err_code, strict
@@ -752,7 +752,7 @@ def to_host(flat: torch.Tensor) -> np.ndarray:
 
 def decode_variable_all_device(payloads_np: np.ndarray, plens_np,
                                spec: LzwSpec, block_size: int,
-                               device="cpu", stage=None,
+                               device="cuda", stage=None,
                                stride2: bool = True, flat: bool = False,
                                prep=None):
     """Whole strict variable-flavor decode on ``device``

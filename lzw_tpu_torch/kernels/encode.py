@@ -1,10 +1,13 @@
-"""Block-parallel LZW encode parse: the CUDA kernel and its plain version.
+"""LZW encode parse: the CUDA kernels and their plain version.
 
 Port of ``lzw_tpu/kernels/encode_pallas.py``.  The TPU package has several
 parse kernels (K1 chunked, K2 single-launch, and the legacy K6-K8) that all
 produce the same dense codes; on Hopper one kernel,
 ``csrc/encode_parse.cu``, serves every flavor and block size: one block's
-parse per warp, its dictionary in shared memory (:mod:`.chains`).
+parse per warp, its dictionary in shared memory (:mod:`.chains`).  The
+single-stream encode (the counterpart of ``lzw_tpu/ops/encode.py``'s scan
+at one row) has a kernel of its own, ``csrc/stream_encode.cu``
+(:func:`encode_stream_codes`): one row a CTA, one thread on its chain.
 
 TPU containments with no counterpart here: the ``SUPER_GROUP_MAX`` batch
 slicing and the two-dispatch encode/pack split (XLA miscompile workarounds),
@@ -17,13 +20,14 @@ from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from lzw_tpu_torch.kernels import build, chains
 from lzw_tpu_torch.spec import MAX_TABLE_SIZE, LzwSpec
 
 __all__ = ["encode_blocks_codes", "encode_blocks_codes_reference",
-           "encode_blocks_fixed", "pack12"]
+           "encode_stream_codes", "encode_blocks_fixed", "pack12"]
 
 
 def _spec_params(spec: LzwSpec | None) -> tuple[int, int, int]:
@@ -99,80 +103,122 @@ def encode_blocks_codes(blocks: torch.Tensor, lens: torch.Tensor,
     return dense, counts, err, err_code
 
 
+def encode_stream_codes(blocks: torch.Tensor, lens: torch.Tensor,
+                        spec: LzwSpec | None):
+    """:func:`encode_blocks_codes` (without positions) through the
+    single-stream kernel ``csrc/stream_encode.cu``: one CTA a row, one
+    thread on its chain, for a few long rows (the facades' one stream)
+    where the container's kernel would run one warp of a card that holds
+    1056.
+
+    CPU tensors run :func:`encode_blocks_codes_reference`; CUDA tensors run
+    the kernel, and anything else raises.  A failed build or launch raises
+    (:func:`lzw_tpu_torch.kernels.build.check_launch`); nothing falls back
+    to ``encode_parse.cu`` or to the plain version.  The kernel reads each
+    row from a 16-byte boundary in 16-byte pieces, so rows whose start or
+    width is not a multiple of 16 are copied into a padded matrix first.
+    """
+    _check_inputs(blocks, lens)
+    if blocks.device.type == "cpu":
+        return encode_blocks_codes_reference(blocks, lens, spec)
+    if blocks.device.type != "cuda":
+        raise ValueError(f"unsupported device {blocks.device}")
+    first_free, _, reset = _spec_params(spec)
+    # The roots: 2^code_size (max_code + 1) at a variable flavor, 256 at
+    # fixed-12.
+    root_bits = spec.code_size if reset >= 0 else 8
+    N, B = blocks.shape
+    dev = blocks.device
+    fn = build.load("stream_encode").stream_encode_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p]
+                   + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 4
+                   + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    with torch.cuda.device(dev):
+        stride = -(-B // 16) * 16
+        if stride != B or blocks.data_ptr() % 16:
+            padded = torch.empty((N, stride), dtype=torch.uint8, device=dev)
+            padded[:, :B] = blocks
+            blocks = padded
+        dense = torch.zeros((N, B + 1), dtype=torch.int32, device=dev)
+        counts = torch.empty(N, dtype=torch.int32, device=dev)
+        err = torch.empty(N, dtype=torch.int32, device=dev)
+        err_code = torch.empty(N, dtype=torch.int32, device=dev)
+        threads, shared = chains.STREAM_ENCODE
+        rc = fn(blocks.data_ptr(), stride, lens.data_ptr(), N, B, root_bits,
+                first_free, reset, dense.data_ptr(),
+                counts.data_ptr(), err.data_ptr(), err_code.data_ptr(), N,
+                threads, shared, torch.cuda.current_stream(dev).cuda_stream)
+    build.check_launch("stream_encode", rc)
+    return dense, counts, err, err_code
+
+
+def _parse_row(data: bytes, first_free: int, max_code: int, reset: int):
+    """One row's parse, step by step as ``_stage_step_fn``: (codes, the
+    byte of each code, err, err_code)."""
+    variable = reset >= 0
+    codes, at = [], []
+    child = {}
+    nxt = first_free
+    prefix = data[0]
+    for i in range(1, len(data)):
+        k = data[i]
+        key = (prefix << 8) | k
+        code = child.get(key)
+        if code is not None:
+            prefix = code
+            continue
+        # A byte past the alphabet is never in the table.
+        if variable and k > max_code:
+            return codes, at, 1, k
+        codes.append(prefix)
+        at.append(i)
+        if variable and nxt == reset:
+            # The entry that trips the reset is wiped with the rest.
+            child.clear()
+            nxt = first_free
+        elif variable or nxt < MAX_TABLE_SIZE:
+            child[key] = nxt
+            nxt += 1
+        prefix = k
+    codes.append(prefix)
+    at.append(len(data))
+    return codes, at, 0, 0
+
+
 def encode_blocks_codes_reference(blocks: torch.Tensor, lens: torch.Tensor,
                                   spec: LzwSpec | None,
                                   positions: bool = False):
-    """Plain PyTorch version of :func:`encode_blocks_codes`.
+    """Plain version of :func:`encode_blocks_codes` and of
+    :func:`encode_stream_codes`.
 
-    A lockstep loop over byte positions, vectorised over blocks, mirroring
-    ``_stage_step_fn`` (encode_pallas.py:329-487).  The dictionary is a
-    dense child map per block indexed by the (prefix<<8 | byte) key, holding
-    the code (-1 = absent): 4 MiB per block, so this version is for small
-    batches.  Keys are computed in int64; codes fit int32.
+    Each row's parse is a loop over its bytes on the host with a dict for
+    its dictionary, mirroring ``_stage_step_fn``
+    (encode_pallas.py:329-487) step by step; the outputs come back on the
+    rows' device.  Its time follows the bytes, not the longest row, so it
+    also holds one 16 MiB stream.
     """
     first_free, max_code, reset = _spec_params(spec)
-    variable = reset >= 0
     N, B = blocks.shape
     dev = blocks.device
-    x = torch.zeros((N, B + 1), dtype=torch.int64, device=dev)
-    x[:, :B] = blocks.to(torch.int64)
-    lens = lens.to(torch.int64)
-    rows = torch.arange(N, device=dev)
-    # The last column takes the writes of blocks that insert nothing, so
-    # every step writes all rows without a data-dependent index.
-    dump = MAX_TABLE_SIZE << 8
-    child = torch.full((N, dump + 1), -1, dtype=torch.int32, device=dev)
-    prefix = torch.zeros(N, dtype=torch.int64, device=dev)
-    nxt = torch.full((N,), first_free, dtype=torch.int64, device=dev)
-    err = torch.zeros(N, dtype=torch.int64, device=dev)
-    err_code = torch.zeros(N, dtype=torch.int64, device=dev)
-    # slots[:, i]: the code emitted at step i (the miss of byte i, or the
-    # final prefix at i == len), -1 where none; i is the code's byte.
-    slots = torch.full((N, B + 1), -1, dtype=torch.int64, device=dev)
-
-    for i in range(B + 1):
-        k = x[:, i]
-        active = (i < lens) & (err == 0)
-        final = (i == lens) & (lens > 0) & (err == 0)
-        if i == 0:
-            prefix = torch.where(active, k, prefix)
+    rows = blocks.cpu().numpy()
+    n_valid = lens.cpu().numpy()
+    dense = np.zeros((N, B + 1), np.int32)
+    pos = np.zeros((N, B + 1), np.int32)
+    counts = np.zeros(N, np.int32)
+    err = np.zeros(N, np.int32)
+    err_code = np.zeros(N, np.int32)
+    for n in range(N):
+        if n_valid[n] <= 0:
             continue
-        if variable:
-            bad = active & (k > max_code)
-            err = torch.where(bad, 1, err)
-            err_code = torch.where(bad, k, err_code)
-            active = active & ~bad
-        key = prefix * 256 + k
-        matched = child[rows, key].to(torch.int64)
-        miss = active & (matched < 0)
-        hit = active & (matched >= 0)
-        slots[:, i] = torch.where(miss | final, prefix, -1)
-        ins = miss if variable else miss & (nxt < MAX_TABLE_SIZE)
-        child[rows, torch.where(ins, key, dump)] = nxt.to(torch.int32)
-        if variable:
-            # The entry that trips the reset is wiped with the rest.
-            reset_now = ins & (nxt == reset)
-            if bool(reset_now.any()):
-                child[reset_now] = -1
-            nxt = torch.where(reset_now, first_free, nxt + ins.to(torch.int64))
-        else:
-            nxt = nxt + ins.to(torch.int64)
-        prefix = torch.where(miss, k, torch.where(hit, matched, prefix))
-
-    # Hole compaction: emitted codes to the front of each row, zeros after.
-    keep = slots >= 0
-    counts = keep.sum(dim=1)
-    col = torch.where(keep, keep.cumsum(dim=1) - 1, B + 1)
-    dense = torch.zeros((N, B + 2), dtype=torch.int64, device=dev)
-    dense.scatter_(1, col, torch.where(keep, slots, 0))
-    out = (dense[:, : B + 1].to(torch.int32), counts.to(torch.int32),
-           err.to(torch.int32), err_code.to(torch.int32))
-    if not positions:
-        return out
-    step = torch.arange(B + 1, device=dev)[None, :].expand(N, -1)
-    pos = torch.zeros((N, B + 2), dtype=torch.int64, device=dev)
-    pos.scatter_(1, col, torch.where(keep, step, 0))
-    return out + (pos[:, : B + 1].to(torch.int32),)
+        codes, at, err[n], err_code[n] = _parse_row(
+            rows[n, : n_valid[n]].tobytes(), first_free, max_code, reset)
+        counts[n] = len(codes)
+        dense[n, : len(codes)] = codes
+        pos[n, : len(at)] = at
+    out = tuple(torch.from_numpy(a).to(dev)
+                for a in (dense, counts, err, err_code))
+    return out + (torch.from_numpy(pos).to(dev),) if positions else out
 
 
 def pack12(dense: torch.Tensor, counts: torch.Tensor, little: bool):

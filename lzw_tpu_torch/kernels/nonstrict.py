@@ -267,7 +267,7 @@ def split_substreams(payloads, plens, spec: LzwSpec):
 
 
 def decode_variable_nonstrict_device(payloads, plens, spec: LzwSpec,
-                                     block_size: int, device="cpu",
+                                     block_size: int, device="cuda",
                                      stage=None) -> list[bytes]:
     """Decode foreign early-CLEAR streams on ``device`` by resegmentation.
 

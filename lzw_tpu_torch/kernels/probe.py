@@ -12,6 +12,11 @@ Port of the Pallas probes of the JAX package's scripts:
   and a chain of ``steps`` dependent gathers (:func:`gather_loop`), all in
   ``csrc/probe_gather.cu``.
 
+And the chain-step probe of the encode kernels, which ports no TPU probe:
+``steps`` steps of a dependent chain through a shared-memory table, by
+one thread or a warp on the same values, timed by ``clock64``
+(:func:`chain_steps`, ``csrc/chain_probe.cu``).
+
 Every wrapper runs its plain version for CPU tensors, its kernel for CUDA
 tensors, and raises for anything else.  Integer arithmetic wraps as int32.
 """
@@ -27,7 +32,8 @@ from lzw_tpu_torch.kernels import build
 
 __all__ = ["SENTINEL", "probe_scan", "probe_scan_reference", "affine",
            "affine_reference", "gather_lanes", "gather_lanes_reference",
-           "gather_loop", "gather_loop_reference"]
+           "gather_loop", "gather_loop_reference", "CHAIN_MODES",
+           "CHAIN_WORDS", "chain_steps", "chain_steps_reference"]
 
 SENTINEL = -30000  # the scan's value for rows not below the step's value
 
@@ -208,3 +214,57 @@ def gather_loop_reference(tab: torch.Tensor, idx: torch.Tensor,
         row = (idx + acc) & (tab.shape[0] - 1)
         acc = tab[row.long(), lanes] + acc
     return acc
+
+
+# chain_probe.cu's modes and its table of u32 words (64 KiB); "branch" and
+# "store" are the load chain with a global store a step in four, behind a
+# branch or made every step.
+CHAIN_MODES = ("load", "parse", "stream", "branch", "store")
+CHAIN_WORDS = 16384
+_HASH = 2654435761
+
+
+def _mix(b: int) -> int:
+    return ((b * 0x9E3779B1) & 0xFFFFFFFF) >> 16 & 0xFFF8
+
+
+def chain_steps(tab: torch.Tensor, start: int, mode: str, lanes: int,
+                steps: int) -> tuple[int, int]:
+    """``steps`` steps of chain ``mode`` over the u32 table ``tab``
+    (i32[CHAIN_WORDS] on the card) from ``start``, run by ``lanes`` lanes
+    of one warp on the same values: (clock64 cycles of the loop, the
+    chain's last value).  CUDA tensors only: the cycles have no plain
+    version; :func:`chain_steps_reference` gives the value."""
+    dev = _cuda_device(tab)
+    if tab.dtype != torch.int32 or tab.shape != (CHAIN_WORDS,) or \
+            not tab.is_contiguous():
+        raise ValueError(f"tab must be contiguous i32[{CHAIN_WORDS}]")
+    fn = build.load("chain_probe").chain_probe_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p, ctypes.c_uint] + [ctypes.c_int] * 3
+                   + [ctypes.c_void_p] * 4)
+    with torch.cuda.device(dev):
+        cycles = torch.zeros(1, dtype=torch.int64, device=dev)
+        out = torch.zeros(2, dtype=torch.int32, device=dev)
+        sink = torch.zeros(1024, dtype=torch.int32, device=dev)
+        rc = fn(tab.data_ptr(), start, CHAIN_MODES.index(mode), lanes, steps,
+                cycles.data_ptr(), out.data_ptr(), sink.data_ptr(),
+                _stream(dev))
+    build.check_launch("chain_probe", rc)
+    return int(cycles.item()), int(out[0].item()) & 0xFFFFFFFF
+
+
+def chain_steps_reference(tab, start: int, mode: str, steps: int) -> int:
+    """The last value of :func:`chain_steps`' chain, a loop on the host."""
+    t = [int(v) & 0xFFFFFFFF for v in torch.as_tensor(tab).tolist()]
+    x, k = start, 0
+    for _ in range(steps):
+        if mode in ("load", "branch", "store"):
+            x = t[x]
+        elif mode == "parse":
+            key = (x * ((_HASH << 8) & 0xFFFFFFFF) + k * _HASH) & 0xFFFFFFFF
+            x = t[(key * 7168) >> 32] & 0xFFF
+        else:
+            x = t[((x ^ _mix(k)) >> 2) + 1]
+        k = (k + 37) & 127
+    return x

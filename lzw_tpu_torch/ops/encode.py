@@ -3,10 +3,11 @@
 Port of ``lzw_tpu/ops/encode.py``.  The JAX package encodes a block with
 its own XLA scan (``encode_block``: a hash-table dictionary, two (code,
 width) slots per input byte) and packs the slots with
-``bitpack.pack_codes_jax``.  The port has no second parse: the block
-container's kernel ``csrc/encode_parse.cu``
-(:func:`lzw_tpu_torch.kernels.encode.encode_blocks_codes`) takes a block of
-any length and gives the same dense codes.
+``bitpack.pack_codes_jax``.  The port keeps the parse in the kernels of
+:mod:`lzw_tpu_torch.kernels.encode`, which give the same dense codes: the
+block container's ``csrc/encode_parse.cu`` for many rows, and
+``csrc/stream_encode.cu`` (one thread on one stream's chain) for the
+facades' one stream.
 
 * :func:`encode_block` keeps the JAX function's slot contract: the parse
   kernel's positions instance reports the byte that emitted each code, a
@@ -14,19 +15,23 @@ any length and gives the same dense codes.
   (:func:`lzw_tpu_torch.kernels.schedule.emission_schedule`), and the codes
   are scattered into their slots; :func:`lzw_tpu_torch.ops.bitpack.
   pack_codes_torch` packs them.
-* :func:`encode_stream_bytes` launches the kernel on one row and packs the
-  dense codes against the schedule
+* :func:`encode_stream_bytes` launches ``stream_encode.cu`` on one row and
+  packs the dense codes against the schedule
   (:func:`lzw_tpu_torch.kernels.schedule.pack_variable`) or in 12-bit pairs
   (:func:`lzw_tpu_torch.kernels.encode.pack12`), with no slots.
 """
 
 from __future__ import annotations
 
+import contextlib
+
 import numpy as np
 import torch
 
 from lzw_tpu_torch.kernels import schedule as _sched
-from lzw_tpu_torch.kernels.encode import encode_blocks_codes, pack12
+from lzw_tpu_torch.kernels.encode import (
+    encode_blocks_codes, encode_stream_codes, pack12,
+)
 from lzw_tpu_torch.spec import (
     MAX_TABLE_SIZE, MAX_WIDTH, Endianness, LzwSpec, UnexpectedCodeError,
 )
@@ -40,9 +45,10 @@ __all__ = ["ERR_NONE", "ERR_UNEXPECTED_CODE", "MAX_ROW", "MAX_STREAM",
 ERR_NONE = 0
 ERR_UNEXPECTED_CODE = 1
 
-# The longest stream encode_stream_bytes takes: the parse kernel's block
-# length and its dense code count are i32.
-MAX_STREAM = 2**31 - 2
+# The longest stream encode_stream_bytes takes: the single-stream kernel's
+# row width (the stream rounded up to 16 bytes) and its dense code count
+# are i32.
+MAX_STREAM = 2**31 - 16
 # The longest row encode_block takes: its 2 * B + 3 slots are indexed by
 # i32.
 MAX_ROW = 2**30 - 2
@@ -166,36 +172,52 @@ def encode_block(blocks: torch.Tensor, n_valid: torch.Tensor, spec: LzwSpec,
 
 def encode_stream_bytes(data: bytes, spec: LzwSpec,
                         fix_eoi_width: bool = False,
-                        device: str | torch.device = "cuda") -> bytes:
+                        device: str | torch.device = "cuda",
+                        stage=None) -> bytes:
     """Compress one stream on ``device`` to salzweg's raw wire format.
 
     With ``fix_eoi_width=False`` (the default) the bytes are salzweg's, as
     the JAX facade calls ``encode_block``; ``True`` widens the EOI of a
     stream whose last data code lands on a width bump, as the container
     does (see ``lzw_tpu_torch.ops.reference.eoi_width_quirk``).  A CUDA
-    device runs the encode-parse kernel, the CPU its plain version.
+    device runs the single-stream kernel ``stream_encode.cu``, the CPU its
+    plain version.
     Raises :class:`UnexpectedCodeError` for a byte past the alphabet after
     the first, and ValueError for a stream longer than :data:`MAX_STREAM`.
+    ``stage(name)``, when given, is a context manager timing each step
+    (``enc_h2d``, ``enc_kernel``, ``enc_pack``, ``enc_d2h``), as the
+    container's stages are named.
     """
     spec.validate()
+    stage = stage or (lambda name: contextlib.nullcontext())
     if len(data) > MAX_STREAM:
         raise ValueError(f"a stream of {len(data)} bytes is past the "
                          f"{MAX_STREAM} that the parse kernel's i32 "
-                         "lengths take")
+                         "rows take")
     device = torch.device(device)
-    # One column at least: an empty stream is a row of length 0.
-    row = np.zeros((1, max(len(data), 1)), np.uint8)
+    # A row of whole 16-byte pieces, as the kernel reads it (an empty
+    # stream is a row of length 0).
+    row = np.zeros((1, max(-(-len(data) // 16) * 16, 16)), np.uint8)
     row[0, : len(data)] = np.frombuffer(bytes(data), np.uint8)
-    blocks = torch.from_numpy(row).to(device)
-    lens = torch.tensor([len(data)], dtype=torch.int32, device=device)
-    dense, counts, err, err_code = encode_blocks_codes(blocks, lens, spec)
+    with stage("enc_h2d"):
+        blocks = torch.from_numpy(row).to(device)
+        lens = torch.tensor([len(data)], dtype=torch.int32, device=device)
+    with stage("enc_kernel"):
+        dense, counts, err, err_code = encode_stream_codes(blocks, lens,
+                                                           spec)
     if int(err[0]):
         raise UnexpectedCodeError(int(err_code[0]), spec.code_size)
-    codes = dense[:, : max(int(counts[0]), 1)]
-    if spec.variable:
-        bufs, n_bytes = _sched.pack_variable(codes, counts, spec,
-                                             fix_eoi=fix_eoi_width)
-    else:
-        bufs, n_bytes = pack12(codes, counts,
-                               spec.endianness is Endianness.LITTLE)
-    return bufs[0, : int(n_bytes[0])].cpu().numpy().tobytes()
+    with stage("enc_pack"):
+        codes = dense[:, : max(int(counts[0]), 1)]
+        if spec.variable:
+            # The first byte is never range-checked, so the first code may
+            # be wider than its slot; the JAX facade's packer and the
+            # oracle keep its low bits.
+            codes[:, 0] &= (1 << spec.initial_width) - 1
+            bufs, n_bytes = _sched.pack_variable(codes, counts, spec,
+                                                 fix_eoi=fix_eoi_width)
+        else:
+            bufs, n_bytes = pack12(codes, counts,
+                                   spec.endianness is Endianness.LITTLE)
+    with stage("enc_d2h"):
+        return bufs[0, : int(n_bytes[0])].cpu().numpy().tobytes()

@@ -1,6 +1,6 @@
 """Synthesised test vectors: foreign streams built from the port's own
 encoder, the edge cases of the one-chain-per-warp kernels, and those of
-the single-stream decode kernels.
+the single-stream encode and decode kernels.
 
 Port of ``lzw_tpu/utils/testdata.py``, whose scalar oracle lives in the JAX
 package: here the codes come from the encode-parse kernel (its plain
@@ -27,7 +27,9 @@ __all__ = ["spliced_nonstrict_stream", "EncodeCase", "Pass1Case",
            "encode_edge_cases", "pass1_edge_cases", "CHAIN_COUNTS",
            "check_edge_cases", "same_slots",
            "StreamCase", "stream_edge_cases",
-           "stream_edge_rows", "check_stream_edge_cases"]
+           "stream_edge_rows", "check_stream_edge_cases",
+           "StreamEncodeCase", "epoch_misses", "stream_encode_edge_cases",
+           "stream_encode_rows", "check_stream_encode_edge_cases"]
 
 
 def _pack_codes(codes: np.ndarray, widths: np.ndarray, little: bool) -> bytes:
@@ -53,7 +55,9 @@ def spliced_nonstrict_stream(data: bytes, spec: LzwSpec, piece: int = 2000,
     Each piece is encoded as its own stream (one batch of blocks on
     ``device``); a CLEAR at the decoder's current read width joins it to the
     previous one, and one EOI at that width ends the whole.  Byte-identical
-    to ``lzw_tpu.utils.testdata.spliced_nonstrict_stream``.
+    to ``lzw_tpu.utils.testdata.spliced_nonstrict_stream``.  A fixture
+    maker whose users are the CPU tests: unlike the entry points, its
+    ``device`` defaults to the CPU.
     """
     if not spec.variable:
         raise ValueError("spliced_nonstrict_stream takes a variable-width spec")
@@ -560,5 +564,134 @@ def check_stream_edge_cases(device, specs) -> int:
                 *(want[k] for k in sdec.PASS2_KEYS), *args)
             _same("stream_pass2", f"{spec} out_bound {bound}",
                   [g.cpu() for g in g2], w2)
+        n += len(lens)
+    return n
+
+
+# ---- the single-stream encoder (kernels.encode.encode_stream_codes) ------
+
+
+class StreamEncodeCase(NamedTuple):
+    """One stream of the single-stream encoder."""
+
+    label: str
+    data: bytes
+
+
+def _every_pair(r: int) -> bytes:
+    """Each ordered pair of the symbols 0..r-1 exactly once, r*r + 1 bytes
+    (the de Bruijn sequence B(r, 2), made linear)."""
+    seq, a = [], [0, 0, 0]
+
+    def db(t, p):
+        if t > 2:
+            if 2 % p == 0:
+                seq.extend(a[1: p + 1])
+            return
+        a[t] = a[t - p]
+        db(t + 1, p)
+        for j in range(a[t - p] + 1, r):
+            a[t] = j
+            db(t + 1, t)
+
+    db(1, 1)
+    return bytes(seq + seq[:1])
+
+
+def _code_bytes(data: bytes, spec: LzwSpec) -> np.ndarray:
+    """The byte of each code the encoder emits for ``data``: each miss's,
+    then the row's length for the final prefix."""
+    row = torch.from_numpy(np.frombuffer(data, np.uint8).copy())[None]
+    out = _enc.encode_blocks_codes_reference(
+        row, torch.tensor([len(data)], dtype=torch.int32), spec,
+        positions=True)
+    return out[4][0, : int(out[1][0])].numpy()
+
+
+def epoch_misses(spec: LzwSpec) -> int:
+    """The misses of a variable flavor's full epoch: codes first_free up
+    to the reset threshold, whose miss trips the reset."""
+    first_free, _, reset = _enc._spec_params(spec)
+    return reset - first_free + 1
+
+
+def stream_encode_edge_cases(spec: LzwSpec,
+                             seed: int = 0) -> list[StreamEncodeCase]:
+    """The single-stream encoder's edge rows for one flavor: an empty and
+    a 1-byte stream; one byte repeated (phrases of 1, 2, 3, ... bytes, each
+    ``KwK`` insert read back at once); ``a a a`` (a root pair inserted and
+    hit on the very next step); every pair of roots once (every step
+    misses, and each miss's next key is a root pair).  Variable flavors also
+    have a stream whose last byte is the miss that trips the reset, one a
+    byte past it, several full epochs, and the same strings in two epochs
+    in a row (a stale entry would be found after the reset); fixed-12 a
+    stream long past the freeze at 4096.  Code sizes below 8 also have a
+    byte past the alphabet at index 1, at index 0 (never checked) and
+    inside a long run of hits."""
+    rng = np.random.default_rng(seed)
+    R = spec.alphabet_size if spec.variable else 256
+    a = int(rng.integers(0, R))
+    cases = [StreamEncodeCase("empty", b""),
+             StreamEncodeCase("one byte", bytes([a])),
+             StreamEncodeCase("one byte repeated", bytes([a]) * 3000),
+             StreamEncodeCase("a a a", bytes([a]) * 3),
+             StreamEncodeCase("every pair once", _every_pair(R))]
+    if spec.variable:
+        P = epoch_misses(spec)
+        data = rng.integers(0, R, 12 * P * spec.initial_width).astype(
+            np.uint8).tobytes()
+        at = _code_bytes(data, spec)
+        trip = int(at[P - 1])  # the byte whose miss trips the first reset
+        epoch = data[: trip + 1]
+        cases += [
+            StreamEncodeCase("reset on the last byte", epoch),
+            StreamEncodeCase("one byte past a reset", data[: trip + 2]),
+            StreamEncodeCase("several full epochs",
+                             data[: int(at[3 * P - 1]) + 101]),
+            StreamEncodeCase("the same strings in two epochs", epoch * 2),
+        ]
+    else:
+        cases.append(StreamEncodeCase(
+            "long past the freeze",
+            rng.integers(0, 256, 24000).astype(np.uint8).tobytes()))
+    if spec.max_code_value < 255:
+        bad = int(rng.integers(R, 256))
+        valid = rng.integers(0, R, 300).astype(np.uint8).tobytes()
+        cases += [
+            StreamEncodeCase("bad byte at index 1", bytes([a, bad]) + valid),
+            StreamEncodeCase("bad byte at index 0", bytes([bad]) + valid),
+            StreamEncodeCase("bad byte in a run of hits",
+                             bytes([a]) * 600 + bytes([bad]) + valid),
+        ]
+    return cases
+
+
+def stream_encode_rows(spec: LzwSpec, seed: int = 0):
+    """:func:`stream_encode_edge_cases` as one launch: u8[N, M] rows of
+    very different lengths, random bytes past each stream (which the
+    kernel reads ahead of the chain).  Returns (labels, rows, lens)."""
+    cases = stream_encode_edge_cases(spec, seed)
+    rng = np.random.default_rng(seed + 1)
+    M = max(len(c.data) for c in cases) + 16
+    mat = rng.integers(0, 256, (len(cases), M)).astype(np.uint8)
+    for i, c in enumerate(cases):
+        mat[i, : len(c.data)] = np.frombuffer(c.data, np.uint8)
+    return ([c.label for c in cases], mat,
+            np.array([len(c.data) for c in cases], np.int32))
+
+
+def check_stream_encode_edge_cases(device, specs) -> int:
+    """:func:`stream_encode_rows` of each spec through
+    ``encode_stream_codes`` on ``device`` against the plain version, every
+    output array exact; each wrapper call must count one launch.  Raises
+    AssertionError naming the flavor; returns the rows compared."""
+    n = 0
+    for spec in specs:
+        _, mat, lens = stream_encode_rows(spec)
+        rows, lens_t = torch.from_numpy(mat), torch.from_numpy(lens)
+        got = _counted("stream_encode", lambda: _enc.encode_stream_codes(
+            rows.to(device), lens_t.to(device), spec))
+        want = _enc.encode_blocks_codes_reference(rows, lens_t, spec)
+        _same("stream_encode", str(spec), [g.cpu() for g in got], want)
         n += len(lens)
     return n

@@ -483,6 +483,33 @@ def test_stream_edge_cases_match_plain(cuda):
                     for spec in STREAM_SPECS.values())
 
 
+def test_stream_encode_edge_cases_match_plain(cuda):
+    # testdata.stream_encode_edge_cases of the five facade flavors, one
+    # launch each: stream_encode.cu against the plain version, exact.
+    specs = [STREAM_SPECS[k] for k in ("gif2", "gif7", "tiff", "fixed",
+                                       "fixed_be")]
+    n = testdata.check_stream_encode_edge_cases(cuda, specs)
+    assert n == sum(len(testdata.stream_encode_edge_cases(spec))
+                    for spec in specs)
+
+
+@pytest.mark.parametrize("name", list(STREAM_SPECS))
+def test_stream_encode_matches_plain(name, cuda):
+    # Random and compressible rows of one launch, one of them at an odd
+    # width (the wrapper pads it), against the plain version and against
+    # the container's kernel on the same rows.
+    spec = STREAM_SPECS[name]
+    blocks, lens = map(torch.from_numpy, _blocks(spec, 6, 20001, len(name)))
+    before = build.LAUNCHES["stream_encode"]
+    got = tenc.encode_stream_codes(blocks.to(cuda), lens.to(cuda), spec)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["stream_encode"] == before + 1
+    want = tenc.encode_blocks_codes_reference(blocks, lens, spec)
+    same = tenc.encode_blocks_codes(blocks.to(cuda), lens.to(cuda), spec)
+    for g, w, s in zip(got, want, same):
+        assert torch.equal(g.cpu(), w) and torch.equal(s.cpu(), w)
+
+
 def test_torch_facades_equal_native_on_card(cuda):
     from lzw_tpu_torch import (
         FixedCodec, GifCodec, LzwCodec, TiffCodec, TruncatedStreamError,

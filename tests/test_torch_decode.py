@@ -70,8 +70,8 @@ def _variable_pair(payload_list, spec, block_size):
         seg=64,
     )
     pw, pnc, ptot, pe, pec, pstrict = tdec.decode_pass1_variable(
-        mat[:n], plens[:n], from_reference_spec(spec), block_size
-    )
+        mat[:n], plens[:n], from_reference_spec(spec), block_size,
+        device="cpu")
     np.testing.assert_array_equal(pstrict, strict[:n])
     np.testing.assert_array_equal(pnc, np.asarray(nc)[:n])
     return _assert_same((w, tot, e, ec), (pw, ptot, pe, pec), n), ptot, pe
@@ -164,7 +164,8 @@ def test_variable_nonstrict_flagged():
                             spec.endianness)
     mat, plens = _matrix([enc], 1)
     *_, strict = tdec.decode_pass1_variable(mat, plens,
-                                            from_reference_spec(spec), 128)
+                                            from_reference_spec(spec), 128,
+                                            device="cpu")
     assert not strict[0]
 
 
@@ -178,8 +179,7 @@ def test_dictionary_reset_round_trip():
     payload = oracle.encode_bytes(data, spec)
     mat, plens = _matrix([payload], 1)
     words, counts, totals, errs, _, strict = tdec.decode_pass1_variable(
-        mat, plens, from_reference_spec(spec), 4096
-    )
+        mat, plens, from_reference_spec(spec), 4096, device="cpu")
     sched = jsched.emission_schedule(spec, int(counts[0]))
     assert sched.clear_after[: int(counts[0]) - 1].any(), "no reset"
     assert strict.all() and not errs.numpy().any()

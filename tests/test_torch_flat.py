@@ -132,7 +132,8 @@ def _pass1(name, datas, block_size, stride2):
         return codes, nc, words, tot, err, pair, None, None
     mat, plens = _matrix(payloads)
     pspec = from_reference_spec(spec)
-    p = tdec.variable_pass1(mat, plens, pspec, block_size, rows=rows)
+    p = tdec.variable_pass1(mat, plens, pspec, block_size, device="cpu",
+                            rows=rows)
     assert p.strict.all()
     return p.dense, p.counts_t, p.words, p.totals, p.err, p.pair, p.sched, pspec
 
@@ -173,7 +174,8 @@ def test_all_device_flat_equals_padded(name, stride2):
         mat, plens = _matrix(payloads)
         pspec = from_reference_spec(spec)
         runs = [tdec.decode_variable_all_device(
-            mat, plens, pspec, 4096, stride2=stride2, flat=f)
+            mat, plens, pspec, 4096, device="cpu", stride2=stride2,
+            flat=f)
             for f in (False, True)]
     else:
         mat, plens = _matrix(payloads, 3)
@@ -290,7 +292,8 @@ def test_pass1_error_block_leaves_its_neighbours():
                 oracle.encode_bytes(datas[1], spec)]
     mat, plens = _matrix(payloads)
     flat, tot, errs, ecs, strict = tdec.decode_variable_all_device(
-        mat, plens, from_reference_spec(spec), 4096, flat=True)
+        mat, plens, from_reference_spec(spec), 4096, device="cpu",
+        flat=True)
     assert int(errs[1]) == 1 and int(ecs[1]) == 7 and not errs[[0, 2]].any()
     b = flat.numpy().tobytes()
     assert len(b) == int(tot.sum())
@@ -340,6 +343,7 @@ def test_nonstrict_flat_decode_equals_native_decode_blocks(lorem_ipsum):
     plens = np.array([len(p) for p in payloads], np.int32)
     for i, p in enumerate(payloads):
         mat[i, : len(p)] = np.frombuffer(p, np.uint8)
-    got = tns.decode_variable_nonstrict_device(mat, plens, spec, bs)
+    got = tns.decode_variable_nonstrict_device(mat, plens, spec, bs,
+                                               device="cpu")
     assert b"".join(got) == get_runtime().decode_blocks(payloads, spec, bs)
     assert b"".join(got) == data

@@ -91,7 +91,7 @@ def test_nonstrict_device_decode_matches_jax(name):
     want = jns.decode_variable_nonstrict_device(pay, plens, spec, 1 << 14,
                                                 interpret=True)
     got = tns.decode_variable_nonstrict_device(
-        pay, plens, from_reference_spec(spec), 1 << 14)
+        pay, plens, from_reference_spec(spec), 1 << 14, device="cpu")
     assert got == want
     assert got[-1] == b""  # an empty payload
     for i, src in enumerate(srcs[:-1]):
@@ -123,7 +123,7 @@ def test_nonstrict_table_full_edges_match_jax():
     ]
     pay, plens = _matrix(streams)
     got = tns.decode_variable_nonstrict_device(
-        pay, plens, from_reference_spec(spec), 1 << 14)
+        pay, plens, from_reference_spec(spec), 1 << 14, device="cpu")
     assert got == [oracle.decode_bytes(s, spec) for s in streams]
 
 
@@ -138,12 +138,14 @@ def test_nonstrict_errors_match_jax():
         jns.decode_variable_nonstrict_device(pay, plens, spec, 1 << 14,
                                              interpret=True)
     with pytest.raises(MissingClearCodeError):
-        tns.decode_variable_nonstrict_device(pay, plens, tspec, 1 << 14)
+        tns.decode_variable_nonstrict_device(pay, plens, tspec, 1 << 14,
+                                             device="cpu")
     # A stream cut in half.
     stream = jax_spliced(_src(spec, 3000, seed=3), spec, 1000)
     pay, plens = _matrix([stream[: len(stream) // 2]])
     with pytest.raises(TruncatedStreamError):
-        tns.decode_variable_nonstrict_device(pay, plens, tspec, 1 << 13)
+        tns.decode_variable_nonstrict_device(pay, plens, tspec, 1 << 13,
+                                             device="cpu")
 
 
 @pytest.mark.parametrize("name", ["gif7", "tiff"])

@@ -173,8 +173,7 @@ def test_variable_all_device_matches_jax(name):
         group2=128, seg2=64,
     )
     p_out, p_tot, p_errs, p_ecs, p_strict = tdec.decode_variable_all_device(
-        mat, plens, from_reference_spec(spec), 8192
-    )
+        mat, plens, from_reference_spec(spec), 8192, device="cpu")
     np.testing.assert_array_equal(p_strict, strict)
     np.testing.assert_array_equal(p_tot.numpy(), np.asarray(tot))
     np.testing.assert_array_equal(p_errs.numpy(), np.asarray(errs))

@@ -90,7 +90,8 @@ def _variable_case(name):
 
 def _assert_port_matches(spec, datas, mat, plens, out, tot, errs, ecs):
     p_out, p_tot, p_errs, p_ecs, p_strict = tdec.decode_variable_all_device(
-        mat, plens, from_reference_spec(spec), 8192, stride2=False)
+        mat, plens, from_reference_spec(spec), 8192, device="cpu",
+        stride2=False)
     assert p_strict.all()
     np.testing.assert_array_equal(p_tot.numpy(), np.asarray(tot))
     np.testing.assert_array_equal(p_errs.numpy(), np.asarray(errs))

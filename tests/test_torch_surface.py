@@ -210,3 +210,58 @@ def test_unpack_variable_matches_the_device_unpack():
     np.testing.assert_array_equal(got[0], dense.numpy())
     np.testing.assert_array_equal(got[1], counts)
     np.testing.assert_array_equal(got[2], strict & data_ok.numpy())
+
+
+# ---- the port's device defaults -------------------------------------------
+
+import lzw_tpu_torch  # noqa: E402
+from lzw_tpu_torch import api as tapi  # noqa: E402
+
+# Fixture makers whose users are the CPU tests keep a CPU default.
+CPU_FIXTURES = ("lzw_tpu_torch.utils.testdata",)
+
+
+def _device_parameters() -> dict[str, object]:
+    """{module:qualname: the default of its ``device`` parameter} of every
+    public function and public method (``__init__`` included) that a
+    module of ``lzw_tpu_torch`` exports, but the CPU fixture makers."""
+    found = {}
+    for info in pkgutil.walk_packages(lzw_tpu_torch.__path__,
+                                      "lzw_tpu_torch."):
+        if info.name in CPU_FIXTURES:
+            continue
+        module = importlib.import_module(info.name)
+        for name in _exported(module):
+            obj = getattr(module, name)
+            if inspect.isclass(obj):
+                funcs = [f for key, f in vars(obj).items()
+                         if inspect.isfunction(f)
+                         and (key == "__init__" or not key.startswith("_"))]
+            else:
+                funcs = [obj] if inspect.isfunction(obj) else []
+            for f in funcs:
+                param = inspect.signature(f).parameters.get("device")
+                if param is not None:
+                    found[f"{f.__module__}:{f.__qualname__}"] = param.default
+    return found
+
+
+@pytest.mark.parametrize("name", sorted(_device_parameters()))
+def test_no_entry_point_defaults_to_the_cpu(name):
+    """An entry point runs on the card unless the caller asks for the CPU:
+    its ``device`` defaults to "cuda", to None (the input's device, or the
+    facade's DEFAULT_DEVICE), or has no default."""
+    default = _device_parameters()[name]
+    allowed = ("cuda", tapi.DEFAULT_DEVICE)
+    assert (default is None or default is inspect.Parameter.empty
+            or str(default) in allowed), f"{name} defaults to {default!r}"
+
+
+def test_device_defaults_cover_the_decode_entry_points():
+    names = _device_parameters()
+    for want in ("lzw_tpu_torch.kernels.decode:variable_pass1",
+                 "lzw_tpu_torch.kernels.decode:decode_pass1_variable",
+                 "lzw_tpu_torch.kernels.decode:decode_variable_all_device",
+                 "lzw_tpu_torch.kernels.nonstrict:"
+                 "decode_variable_nonstrict_device"):
+        assert names[want] == "cuda", want
