@@ -121,10 +121,25 @@ Phases, one line each, any failure exits non-zero:
    64 KiB gif7 and 8192 x 4 KiB fixed-12 rows of the image plane equal,
    block for block, to the payloads ``BlockParallelCodec`` frames, with
    the positions and the container's instances, the wrapper and the pack
-   timed by CUDA events and the peak memory beside ``encode_block_peak``.
+   timed by CUDA events and the peak memory beside ``encode_block_peak``;
+16. the container's contract on input past the alphabet and on blocks that
+   decode past their size: 2048 x 64 KiB gif2 blocks of the image plane
+   (reduced to 2 bits), each block's first byte past the alphabet, through
+   ``BlockParallelCodec``: every payload equal to the native runtime's
+   single-stream encode of its block (the first code masked to its slot),
+   a sample to the CPU plain route's, ``verify=True`` raising
+   VerificationError, the pack with the mask beside the pack without it;
+   then a gif7 container of 128 x 64 KiB blocks, two of them holding 68 KiB
+   streams: the same UnexpectedCodeError code on ``pass2`` "host",
+   "device" and "auto", equal to the plain pass 1's and the oracle's; the
+   same for a foreign early-CLEAR 68 KiB stream in that container (the
+   non-strict route) and for a 260 KiB stream in a container of 8 x
+   256 KiB blocks (past ``MAX_BLOCK``: the single-stream decoder), where
+   "host" and "auto" first call the native ``decode_blocks``.
 
 ``python3 chip_smoke.py --stream-only`` runs phases 1, 2 and 14 alone
-(about two minutes) and ends with ``[done]`` lines, not the JSON lines.
+(about two minutes), ``python3 chip_smoke.py --contract-only`` phases 1, 2
+and 16; each ends with ``[done]`` lines, not the JSON lines.
 
 Phases 1-8 run on cuda:0.  Each timing of the encode-parse and pass-1
 kernels also prints their chains in flight (CTAs per SM from the occupancy
@@ -2212,7 +2227,243 @@ def run_encode_block(image: bytes, smi: str, device) -> list[dict]:
     return launches
 
 
-def main(stream_only: bool = False) -> int:
+def run_contract(image: bytes, smi: str, device) -> list[dict]:
+    """Phase 16: the container's contract on input past the alphabet and on
+    blocks that decode past their size, at the main path's width.
+
+    Encode: 2048 x 64 KiB gif2 blocks (128 MiB of the image plane reduced
+    to 2 bits), each block's first byte set past the alphabet, through
+    ``BlockParallelCodec(device=device, verify=False)``, counted to launch
+    ``encode_parse``: every payload equal to the native runtime's
+    single-stream encode of its block (which masks the first code to its
+    slot), four of them to the CPU plain route's; the parse's dense codes
+    on 64 of the rows against their plain version, the first byte whole in
+    both; ``verify=True`` raises VerificationError, as the JAX container
+    does.  Then the container's pack with the mask (``pack_dense``) beside
+    the pack without it (``pack_variable``) on phase 4's gif7 dense codes,
+    by CUDA events, in turns.  Decode: a gif7 container of 128 x 64 KiB
+    blocks of the image plane whose blocks 37 and 90 hold streams of
+    68 KiB raises UnexpectedCodeError with one code on ``pass2`` "host",
+    "device" and "auto" (each counted to launch ``decode_pass1`` and call
+    no native decoder), the code of block 37 in the plain pass 1 and in
+    the oracle bounded at the block size; pass 1 on the card against its
+    plain version on rows 36 and 37, every array exact.  Then the same
+    container with a foreign early-CLEAR stream of 68 KiB (epochs of 2900
+    bytes) in block 37, and a gif7 container of 8 x 256 KiB blocks (past
+    ``MAX_BLOCK``) with a 260 KiB stream in block 3: each raises one
+    UnexpectedCodeError code on "host", "device" and "auto" (each counted
+    to launch ``decode_pass1`` or ``stream_pass1``, "host" and "auto" to
+    call the native ``decode_blocks`` first, which cannot name the code),
+    the plain route's, the plain witness's (pass 1 on the crossing epoch
+    bounded at the room the earlier epochs leave; the single-stream
+    decoder's word past the block) and the bounded oracle's.  Returns the
+    counted runs' launches."""
+    import numpy as np
+    import torch
+
+    from lzw_tpu_torch import BlockParallelCodec, LzwSpec
+    from lzw_tpu_torch.kernels import encode as tenc
+    from lzw_tpu_torch.kernels import schedule as tsched
+    from lzw_tpu_torch.kernels.decode import MAX_BLOCK, variable_pass1
+    from lzw_tpu_torch.kernels.nonstrict import (
+        decode_variable_nonstrict_device,
+    )
+    from lzw_tpu_torch.native.runtime import get_runtime
+    from lzw_tpu_torch.ops import decode as sdec
+    from lzw_tpu_torch.ops import reference
+    from lzw_tpu_torch.ops.encode import pack_dense
+    from lzw_tpu_torch.parallel import framing
+    from lzw_tpu_torch.utils.card import cuda_ms
+    from lzw_tpu_torch.utils.testdata import spliced_nonstrict_stream
+
+    t0 = time.perf_counter()
+    block = 1 << 16
+    gif2, gif7 = LzwSpec.gif(2), LzwSpec.gif(7)
+    rt = get_runtime()
+    mat = (np.frombuffer(image[: 128 * MiB], np.uint8) & 3).reshape(
+        -1, block).copy()
+    n = mat.shape[0]
+    mat[:, 0] = np.random.default_rng(16).integers(
+        gif2.alphabet_size, 256, size=n)
+    data = mat.tobytes()
+    dt, container, l_enc = timed_run(
+        lambda: BlockParallelCodec(gif2, block, device=device,
+                                   verify=False).encode(data),
+        {"encode_parse": 1}, "gif2 first bytes past the alphabet")
+    launches = [l_enc]
+    payloads = [bytes(p) for p in framing.parse_frame(container)[1]]
+    with ThreadPoolExecutor(8) as pool:
+        native = list(pool.map(
+            lambda i: rt.encode(mat[i].tobytes(), gif2, fix_eoi=True),
+            range(n)))
+    bad = [i for i in range(n) if i >= len(payloads)
+           or payloads[i] != native[i]]
+    if len(payloads) != n or bad:
+        raise AssertionError(
+            f"gif2 first bytes: {len(bad)} of {n} payloads differ from the "
+            f"native single-stream encode, first block {bad[:1]}")
+    sample = [0, 1, n // 2, n - 1]
+    plain = framing.parse_frame(BlockParallelCodec(
+        gif2, block, device="cpu", verify=False).encode(
+            mat[sample].tobytes()))[1]
+    if [bytes(p) for p in plain] != [payloads[i] for i in sample]:
+        raise AssertionError("gif2 first bytes: the card's payloads differ "
+                             f"from the CPU plain route's on blocks {sample}")
+    rows = torch.from_numpy(mat[:64]).to(device)
+    lens = torch.full((64,), block, dtype=torch.int32, device=device)
+    got = tenc.encode_blocks_codes(rows, lens, gif2)
+    want = tenc.encode_blocks_codes_reference(rows.cpu(), lens.cpu(), gif2)
+    err = max_abs_err(got, want)
+    if err or (got[0][:, 0].cpu().numpy() != mat[:64, 0]).any():
+        raise AssertionError(
+            f"gif2 first bytes: encode_parse != plain (max_abs_err {err}) "
+            "or its first dense code is not the whole first byte")
+    verified = outcome(BlockParallelCodec(gif2, block, device=device,
+                                          verify=True).encode, data)
+    if verified[0] != "VerificationError":
+        raise AssertionError(f"gif2 first bytes: verify=True gave "
+                             f"{verified[0]}, not VerificationError")
+    say("contract", f"gif2 {n} x {block} B, every first byte past the "
+        f"alphabet: payloads == native single-stream encode block for "
+        f"block, == the CPU plain route on blocks {sample}; encode_parse "
+        "== plain on 64 rows, its first code the whole byte; verify=True "
+        f"raises VerificationError; {dt * 1e3:.1f} ms once, launches "
+        f"{l_enc}; {smi}")
+
+    # The pack with and without the first code's mask, main-path shape.
+    img = torch.from_numpy(np.frombuffer(image[: 128 * MiB], np.uint8)
+                           .reshape(-1, block).copy()).to(device)
+    dense, counts, _, _ = tenc.encode_blocks_codes(
+        img, torch.full((n,), block, dtype=torch.int32, device=device), gif7)
+    del img
+    dense = dense[:, : max(int(counts.max()), 1)]
+    packs = {"pack_variable": lambda: tsched.pack_variable(
+                 dense, counts, gif7, fix_eoi=True),
+             "pack_dense": lambda: pack_dense(dense, counts, gif7,
+                                              fix_eoi=True)}
+    outs = {name: fn() for name, fn in packs.items()}
+    if not all(torch.equal(a, b) for a, b in zip(*outs.values())):
+        raise AssertionError("gif7: pack_dense != pack_variable on codes "
+                             "within the alphabet")
+    del outs
+    times = {name: [] for name in packs}
+    for name in ("pack_variable", "pack_dense", "pack_dense",
+                 "pack_variable"):
+        times[name].append(cuda_ms(packs[name]))
+    say("contract", f"gif7 {n} x {block} B enc_pack by CUDA events, in "
+        "turns: " + ", ".join(f"{k} " + " / ".join(f"{t:.4f}" for t in v)
+                              + " ms" for k, v in times.items())
+        + f"; {smi}")
+    del dense, counts, packs
+
+    # Blocks that decode past their size.
+    data7 = image[: 8 * MiB]
+    payloads7 = [bytes(p) for p in framing.parse_frame(BlockParallelCodec(
+        gif7, block, device=device).encode(data7))[1]]
+    clean7 = list(payloads7)
+    for b, at in ((37, 9 * MiB), (90, 11 * MiB)):
+        payloads7[b] = rt.encode(image[at : at + block + 4096], gif7,
+                                 fix_eoi=True)
+    frame = framing.pack_frame(gif7, block, len(data7), payloads7)
+    routes = {}
+    for route in ("host", "device", "auto"):
+        codec = BlockParallelCodec(gif7, block, device=device, pass2=route)
+        _, routes[route], lc = timed_run(
+            lambda: outcome(codec.decode, frame),
+            {"decode_pass1": 1, "apply_words": 0, "decode_blocks": 0},
+            f"gif7 overflow {route}")
+        launches.append(lc)
+    sub = [payloads7[36], payloads7[37]]
+    mat7 = np.zeros((2, max(len(p) for p in sub)), np.uint8)
+    for i, p in enumerate(sub):
+        mat7[i, : len(p)] = np.frombuffer(p, np.uint8)
+    plens7 = np.array([len(p) for p in sub], np.int32)
+    k = variable_pass1(mat7, plens7, gif7, block, device)
+    p1 = variable_pass1(mat7, plens7, gif7, block, "cpu")
+    err = max_abs_err((k.words, k.totals, k.err, k.err_code),
+                      (p1.words, p1.totals, p1.err, p1.err_code))
+    code = int(p1.err_code[1])
+    bounded = reference.block_error([payloads7[37]], gif7, block)
+    want = ("UnexpectedCodeError", code)
+    if (err or p1.err.tolist() != [0, 2] or getattr(bounded, "code", None)
+            != code or any(o != want for o in routes.values())):
+        raise AssertionError(
+            f"gif7 overflow: routes {routes}, plain pass 1 err "
+            f"{p1.err.tolist()} code {code}, oracle {bounded!r}, kernel vs "
+            f"plain max_abs_err {err}")
+    say("contract", f"gif7 {len(payloads7)} x {block} B, blocks 37 and 90 "
+        f"decoding past it: UnexpectedCodeError({code}) on host, device and "
+        "auto (decode_pass1 launched, no native decoder called), == the "
+        "plain pass 1's code (err 2) and the bounded oracle's; decode_pass1 "
+        f"== plain on rows 36-37; launches {launches[1:]}")
+
+    # A foreign (early-CLEAR) block, then a block past MAX_BLOCK, that
+    # decode past their size: "host" and "auto" take the native
+    # decode_blocks, which cannot name the code, then the device route.
+    piece = 2900
+    long7 = image[13 * MiB : 13 * MiB + block + 4096]
+    foreign = spliced_nonstrict_stream(long7, gif7, piece, device=device)
+    k_ep, room = divmod(block, piece)
+    epoch = rt.encode(long7[k_ep * piece : (k_ep + 1) * piece], gif7,
+                      fix_eoi=True)
+    ep = variable_pass1(np.frombuffer(epoch, np.uint8)[None].copy(),
+                        np.array([len(epoch)], np.int32), gif7, room, "cpu")
+    plain = outcome(lambda: decode_variable_nonstrict_device(
+        np.frombuffer(foreign, np.uint8)[None].copy(),
+        np.array([len(foreign)], np.int32), gif7, block, device="cpu"))
+    big = 2 * MAX_BLOCK
+    data_big = image[: 8 * big]
+    payloads_big = [bytes(p) for p in framing.parse_frame(BlockParallelCodec(
+        gif7, big, device=device).encode(data_big))[1]]
+    payloads_big[3] = rt.encode(image[20 * MiB : 20 * MiB + big + 4096],
+                                gif7, fix_eoi=True)
+    row = torch.from_numpy(np.frombuffer(payloads_big[3], np.uint8)[None]
+                           .copy())
+    res = sdec.decode_block(row, torch.tensor([row.shape[1]],
+                                              dtype=torch.int32),
+                            gif7, big, overflow_error=True)
+    plain_big = (int(res["error"][0]), int(res["error_code"][0]))
+    clean7[37] = foreign
+    # Each case: its container, block size, the kernel its device route
+    # launches, the plain route's outcome, the plain witness's (err kind,
+    # code) and the kind it must be, and the failing stream.
+    cases = {
+        "foreign": (framing.pack_frame(gif7, block, len(data7), clean7),
+                    block, "decode_pass1", plain,
+                    (int(ep.err[0]), int(ep.err_code[0])), 2, foreign),
+        "big": (framing.pack_frame(gif7, big, len(data_big), payloads_big),
+                big, "stream_pass1", ("UnexpectedCodeError", plain_big[1]),
+                plain_big, sdec.ERR_UNEXPECTED_CODE, payloads_big[3]),
+    }
+    for case, (frame, bs, kernel, want, (w_err, w_code), kind, stream) in (
+            cases.items()):
+        bounded = reference.block_error([stream], gif7, bs)
+        got = {}
+        for route in ("host", "device", "auto"):
+            codec = BlockParallelCodec(gif7, bs, device=device, pass2=route)
+            _, got[route], lc = timed_run(
+                lambda: outcome(codec.decode, frame),
+                {kernel: 1, "decode_blocks": int(route != "device")},
+                f"gif7 {case} overflow {route}")
+            launches.append(lc)
+        if (want[0] != "UnexpectedCodeError" or w_code != want[1]
+                or w_err != kind or getattr(bounded, "code", None)
+                != want[1] or any(o != want for o in got.values())):
+            raise AssertionError(
+                f"gif7 {case} overflow: routes {got}, plain {want}, plain "
+                f"witness ({w_err}, {w_code}), oracle {bounded!r}")
+        say("contract", f"gif7 {case} block past its {bs} B: "
+            f"{want[0]}({want[1]}) on host, device and auto ({kernel} "
+            "launched on each, the native decode_blocks called on host and "
+            "auto), == the plain route's, the plain "
+            + ("pass 1 on the crossing epoch bounded at the room left"
+               if case == "foreign" else "single-stream decoder's")
+            + f" and the bounded oracle's; launches {launches[-3:]}")
+    say("contract", f"phase 16: {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+def main(only: str | None = None) -> int:
     if not (ROOT / "lzw_tpu_torch").is_dir():
         print("chip_smoke.py: lzw_tpu_torch/ not found beside the script; "
               "run it from a checkout of the repository", file=sys.stderr)
@@ -2260,11 +2511,16 @@ def main(stream_only: bool = False) -> int:
     count_host_calls()
     assets = ROOT / "test-assets"
     tokyo = load_tokyo_pixels(assets / "tokyo_128_colors.png")
-    if stream_only:
+    if only == "--stream-only":
         t14 = time.perf_counter()
         launches, _ = run_stream(tile(tokyo, 128 * MiB), smi, device)
         say("done", f"phase 14: {time.perf_counter() - t14:.1f} s, "
             f"launches {launches}; wall time "
+            f"{time.perf_counter() - t_start:.1f} s; {smi}")
+        return 0
+    if only == "--contract-only":
+        launches = run_contract(tile(tokyo, 128 * MiB), smi, device)
+        say("done", f"launches {launches}; wall time "
             f"{time.perf_counter() - t_start:.1f} s; {smi}")
         return 0
 
@@ -2372,6 +2628,9 @@ def main(stream_only: bool = False) -> int:
 
     # 15. The JAX package's per-block encode contract on the card.
     add(run_encode_block(image, smi, device))
+
+    # 16. The container's contract past the alphabet and past a block.
+    add(run_contract(image, smi, device))
     del image
 
     kernels = []
@@ -2394,6 +2653,6 @@ def main(stream_only: bool = False) -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--multihost-worker"]:
         sys.exit(multihost_worker(sys.argv[2:]))
-    if sys.argv[1:] not in ([], ["--stream-only"]):
-        sys.exit(f"usage: {sys.argv[0]} [--stream-only]")
-    sys.exit(main(stream_only=sys.argv[1:] == ["--stream-only"]))
+    if sys.argv[1:] not in ([], ["--stream-only"], ["--contract-only"]):
+        sys.exit(f"usage: {sys.argv[0]} [--stream-only | --contract-only]")
+    sys.exit(main(only=(sys.argv[1:] or [None])[0]))

@@ -18,6 +18,7 @@ from lzw_tpu_torch.api import (
 )
 from lzw_tpu_torch.parallel import BlockParallelCodec
 from lzw_tpu_torch.spec import (
+    BlockOverflowError,
     CodeSizeError,
     CodeSizeStrategy,
     DecodingError,
@@ -33,6 +34,7 @@ from lzw_tpu_torch.spec import (
 )
 
 __all__ = [
+    "BlockOverflowError",
     "BlockParallelCodec",
     "CodeSizeError",
     "CodeSizeStrategy",

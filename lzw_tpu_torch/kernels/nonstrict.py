@@ -8,8 +8,9 @@ own (width bumps depend only on the code count since the last CLEAR, and an
 epoch cannot outlive the table-full ordinal, past which the reference
 demands a CLEAR, `decoder.rs:281-283`).  So :func:`parse_epochs` splits the
 streams at their CLEARs on the host (numpy, vectorised per epoch
-generation; the JAX package's function, unchanged), and every epoch decodes
-on the device as a strict sub-stream through pass 1 and pass 2.
+generation; the JAX package's function, which can also record each
+stream's parse error and keep the codes before it), and every epoch
+decodes on the device as a strict sub-stream through pass 1 and pass 2.
 
 Left out against the JAX package: the padding of the sub-stream count to
 kernel groups and of the output width to pass-2 buckets.
@@ -25,11 +26,11 @@ import torch
 
 from lzw_tpu_torch.kernels import schedule as _sched
 from lzw_tpu_torch.kernels.decode import (
-    decode_pass1, decode_pass2_stride2_flat, to_host,
+    KIND_HOLE, decode_pass1, decode_pass2_stride2_flat, to_host,
 )
 from lzw_tpu_torch.spec import (
-    LzwSpec, MAX_WIDTH, MissingClearCodeError, TruncatedStreamError,
-    UnexpectedCodeError,
+    BlockOverflowError, LzwSpec, MAX_WIDTH, MissingClearCodeError,
+    TruncatedStreamError, UnexpectedCodeError,
 )
 
 __all__ = ["parse_epochs", "split_substreams",
@@ -104,12 +105,18 @@ def _unpack_at(w24, rows, bit_off_rows, spec: LzwSpec, L: int,
     return (acc >> (24 - sh - w[None])) & mask[None]
 
 
-def parse_epochs(payloads, plens, spec: LzwSpec):
+def parse_epochs(payloads, plens, spec: LzwSpec, failed=None):
     """Split foreign variable streams into strict per-epoch sub-streams.
 
     Returns (dense i32[U, S_e_pad], counts i64[U], owner i64[U]) where U
     sub-streams appear grouped by owner stream in epoch order, plus S_e_pad.
-    Raises :class:`TruncatedStreamError` if any stream ends without EOI.
+    Raises :class:`TruncatedStreamError` if any stream ends without EOI,
+    and :class:`MissingClearCodeError` for a data code where a table-full
+    epoch's CLEAR must sit.  With ``failed`` (a list, empty) it raises
+    neither: each stream's parse error, or None, is appended to it in
+    stream order, and a failing stream ends with the epoch that fails,
+    cut to its codes that end within the stream (a reference decoder
+    meets them before the error).
     """
     if not spec.variable:
         raise ValueError("parse_epochs takes a variable-width spec")
@@ -145,6 +152,8 @@ def parse_epochs(payloads, plens, spec: LzwSpec):
     end_q = _slot_tables(spec, Lq)[3]
     end_f = _slot_tables(spec, S_e)[3]
 
+    fail = [None] * N
+
     def subset(g_rows, V, L, allow_full, is_term=None):
         """One epoch for streams ``g_rows`` with unpacked slot values
         ``V`` covering [0, L].  Slot S_e sits PAST the schedule's
@@ -155,6 +164,7 @@ def parse_epochs(payloads, plens, spec: LzwSpec):
         (`decoder.rs:281-283`)."""
         m = len(g_rows)
         sl = V[:, :L]
+        short = np.zeros(m, bool)
         if is_term is None:
             # A slot's own end is offs + width: offs[j + 1] would include
             # the mandatory-CLEAR gap at the table-full slot, wrongly
@@ -169,7 +179,8 @@ def parse_epochs(payloads, plens, spec: LzwSpec):
             fullm = (~has_term) & (
                 bit_off[g_rows] + offs[S_e] <= bit_lim[g_rows]
             )
-            if not (has_term | fullm).all():
+            short = ~(has_term | fullm)
+            if short.any() and failed is None:
                 raise TruncatedStreamError()
             gi = np.nonzero(fullm)[0]
             if len(gi):
@@ -178,12 +189,21 @@ def parse_epochs(payloads, plens, spec: LzwSpec):
                     mat, gr, bit_off[gr] + offs[S_e] - MAX_WIDTH,
                     MAX_WIDTH, little,
                 )
-                if ((gv != clear) & (gv != eoi)).any():
+                wrong = (gv != clear) & (gv != eoi)
+                if wrong.any() and failed is None:
                     raise MissingClearCodeError()
-                fin_gap[gi] = gv == eoi
+                for g in gr[wrong]:
+                    fail[g] = MissingClearCodeError()
+                fin_gap[gi] = (gv == eoi) | wrong
         k = np.where(
             has_term, is_term.argmax(axis=1), S_e
         ).astype(np.int64)
+        if short.any():
+            # The codes that end within the stream, then the truncation.
+            k[short] = (slot_end[short] <= bit_lim[g_rows[short], None]).sum(
+                axis=1)
+            for g in g_rows[short]:
+                fail[g] = TruncatedStreamError()
         term_val = np.where(
             has_term, sl[np.arange(m), np.minimum(k, L - 1)], clear
         )
@@ -194,7 +214,7 @@ def parse_epochs(payloads, plens, spec: LzwSpec):
         denses.append(np.where(sel, sl, 0))
         adv = np.where(has_term, offs[k] + widths[k], offs[S_e])
         bit_off[g_rows] = bit_off[g_rows] + adv
-        fin = (has_term & (term_val == eoi)) | fin_gap
+        fin = (has_term & (term_val == eoi)) | fin_gap | short
         done[g_rows[fin]] = True
 
     guard = 0
@@ -222,6 +242,8 @@ def parse_epochs(payloads, plens, spec: LzwSpec):
             vf = _unpack_at(w24, rf, bit_off[rf], spec, S_e, little)
             subset(rf, vf, S_e, True)
 
+    if failed is not None:
+        failed.extend(fail)
     if not owners:
         U = 0
         S_pad = 512
@@ -250,20 +272,44 @@ def parse_epochs(payloads, plens, spec: LzwSpec):
     ), cnt, owner, S_pad
 
 
-def split_substreams(payloads, plens, spec: LzwSpec):
+def split_substreams(payloads, plens, spec: LzwSpec, failed=None):
     """:func:`parse_epochs` plus the sub-streams' schedule rows: each
     sub-stream is one epoch, so its rows are those of a stream's first
-    epoch, and its code slots stop at the longest count.
+    epoch, and its code slots stop at the longest count.  ``failed`` as in
+    :func:`parse_epochs`.
 
     Returns (dense i32[U, S], counts i64[U], owner i64[U], sched_arr
     i32[2, S]); U may be 0.
     """
-    dense, cnt, owner, _ = parse_epochs(payloads, plens, spec)
+    dense, cnt, owner, _ = parse_epochs(payloads, plens, spec, failed)
     S = int(cnt.max(initial=1))
     sched = _sched.emission_schedule(spec, S)
     sched_arr = np.stack([sched.nxt_of[:S] - 1,
                           sched.epoch_start[:S]]).astype(np.int32)
     return np.ascontiguousarray(dense[:, :S]), cnt, owner, sched_arr
+
+
+def _stream_error(rows, dense, cnt, words, errs, err_codes, totals,
+                  block_size: int, parse_error):
+    """The first error of one stream in stream order, from its
+    sub-streams' pass-1 outputs: ``rows`` are its sub-streams in epoch
+    order, ``words`` their pass-1 words (numpy).  A word that ends past
+    ``block_size`` counted over the whole stream fails on its code, as the
+    container pass 1 flags a strict block; then a sub-stream's own pass-1
+    error; then ``parse_error``, the stream's parse error (or None)."""
+    room = block_size
+    for r, w in zip(rows, words):
+        n = int(cnt[r])
+        kind, length = w[:n] >> 29, (w[:n] >> 17) & 0xFFF
+        # Pass 1 stops at its error: the words before it are whole.
+        stop = int(np.argmax(kind == KIND_HOLE)) if errs[r] else n
+        over = np.cumsum(length[:stop]) > room
+        if over.any():
+            return UnexpectedCodeError(int(dense[r, np.argmax(over)]))
+        if errs[r]:
+            return UnexpectedCodeError(int(err_codes[r]))
+        room -= int(totals[r])
+    return parse_error
 
 
 def decode_variable_nonstrict_device(payloads, plens, spec: LzwSpec,
@@ -272,18 +318,27 @@ def decode_variable_nonstrict_device(payloads, plens, spec: LzwSpec,
     """Decode foreign early-CLEAR streams on ``device`` by resegmentation.
 
     ``payloads`` u8[N, PB] and ``plens`` are numpy.  Returns the N decoded
-    streams as ``bytes``.  Raises :class:`TruncatedStreamError` or
-    :class:`MissingClearCodeError` from the parse, and
-    :class:`UnexpectedCodeError` with the offending code from pass 1.
+    streams as ``bytes``.  Raises the first failing stream's first error
+    in stream order, as a reference decoder meets it with its output
+    bounded at ``block_size``: :class:`UnexpectedCodeError` with the
+    offending code from pass 1, or with the code whose word passes
+    ``block_size`` (alone, as pass 1 flags it, or counted over the
+    stream's epochs together), then :class:`TruncatedStreamError` or
+    :class:`MissingClearCodeError` from the parse.
     ``stage(name)``, when given, is a context manager timing each stage
     (``dec_parse_epochs``, ``dec_h2d``, ``dec_pass1``, ``dec_pass2``,
     ``dec_d2h_out``).
     """
     stage = stage or (lambda name: contextlib.nullcontext())
     N = payloads.shape[0]
+    failed = []
     with stage("dec_parse_epochs"):
-        dense, cnt, owner, sched_arr = split_substreams(payloads, plens, spec)
+        dense, cnt, owner, sched_arr = split_substreams(payloads, plens, spec,
+                                                        failed)
+    parse_failed = np.array([e is not None for e in failed], bool)
     if dense.shape[0] == 0:
+        if parse_failed.any():
+            raise failed[int(np.argmax(parse_failed))]
         return [b""] * N
     with stage("dec_h2d"):
         dense_t = torch.from_numpy(dense).to(device)
@@ -294,10 +349,21 @@ def decode_variable_nonstrict_device(payloads, plens, spec: LzwSpec,
             dense_t, cnt_t, spec, block_size, sched_t, rows="stride2"
         )
     errs = errs.cpu().numpy()
-    if errs.any():
-        i = int(np.argmax(errs != 0))
-        raise UnexpectedCodeError(int(err_codes[i]))
     te = totals.cpu().numpy().astype(np.int64)
+    # A stream fails where pass 1 refused one of its sub-streams, where
+    # they pass block_size together, or where its parse failed.
+    refused = np.bincount(owner, weights=errs != 0, minlength=N) > 0
+    long = np.bincount(owner, weights=np.where(errs == 0, te, 0),
+                       minlength=N) > block_size
+    failing = refused | long | parse_failed
+    if failing.any():
+        b = int(np.argmax(failing))
+        rows = np.nonzero(owner == b)[0]
+        w = words[torch.from_numpy(rows).to(words.device)].cpu().numpy()
+        # None only where the words disagree with the totals.
+        raise _stream_error(rows, dense, cnt, w, errs,
+                            err_codes.cpu().numpy(), te, block_size,
+                            failed[b]) or BlockOverflowError(block_size)
     with stage("dec_pass2"):
         # The sub-streams' bytes back to back, in (owner, epoch) order.
         flat = decode_pass2_stride2_flat(dense_t, words, pair, cnt_t, totals,

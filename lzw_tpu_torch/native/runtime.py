@@ -22,6 +22,7 @@ import numpy as np
 
 from lzw_tpu_torch.ops.encode import packed_bound
 from lzw_tpu_torch.spec import (
+    BlockOverflowError,
     CodeSizeError,
     Endianness,
     LzwSpec,
@@ -247,7 +248,12 @@ class NativeRuntime:
 
     def decode_blocks(self, payloads: list[bytes], spec: LzwSpec,
                       block_size: int, n_threads: int | None = None) -> bytes:
-        """Threaded block-parallel decode of container payloads."""
+        """Threaded block-parallel decode of container payloads.
+
+        Raises the typed error of the first failing block, or
+        :class:`BlockOverflowError` (with no code: the library reports only
+        its full buffer) where that block's output passes ``block_size``.
+        """
         spec.validate()
         n_blocks = len(payloads)
         if n_blocks == 0:
@@ -266,6 +272,10 @@ class NativeRuntime:
             block_size, _u32(out_lens), *self._spec_args(spec),
             _threads(n_threads), ctypes.byref(err),
         )
+        if rc == _ERR_BUF:
+            # A block's words pass its block_size; the library does not
+            # say which code.
+            raise BlockOverflowError(block_size)
         if rc != _OK:
             self._raise(rc, err.value, spec)
         return b"".join(

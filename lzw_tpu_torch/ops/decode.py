@@ -520,7 +520,8 @@ def decode_pass2_reference(gprefix, gsuffix, glocal, out_g, out_len,
 
 
 def decode_block(data: torch.Tensor, n_valid: torch.Tensor, spec: LzwSpec,
-                 out_bound: int | None = None) -> dict:
+                 out_bound: int | None = None,
+                 overflow_error: bool = False) -> dict:
     """Both passes, and each row's first error.
 
     ``out_bound`` is the output bytes kept per row: the container passes
@@ -532,11 +533,17 @@ def decode_block(data: torch.Tensor, n_valid: torch.Tensor, spec: LzwSpec,
     Returns ``out`` u8[N, out_bound], ``total_len`` i64[N], ``error`` and
     ``error_code`` i32[N].  Error precedence follows stream order: a
     pass-2 corrupt chain on an earlier word wins over a pass-1 error on a
-    later code (`decoder.rs:257-260`).
+    later code (`decoder.rs:257-260`).  With ``overflow_error`` (and an
+    ``out_bound``) a word that ends past ``out_bound`` is an error too, of
+    kind ``ERR_UNEXPECTED_CODE`` on the code that passes it, in the same
+    order: the container's decode pass 1 flags a block so.  Without it the
+    row is cut at ``out_bound``, as the JAX function cuts it.
     """
     p1 = decode_pass1(data, n_valid, spec)
     failed = p1["error"] != ERR_NONE
     if out_bound is None:
+        if overflow_error:
+            raise ValueError("overflow_error needs an out_bound")
         kept = torch.where(failed, 0, p1["total_len"])
         check_offsets(kept)
         out_bound = max(int(kept.max()) if kept.numel() else 0, 1)
@@ -545,12 +552,24 @@ def decode_block(data: torch.Tensor, n_valid: torch.Tensor, spec: LzwSpec,
     # The pass-1 error (if any) occurred on the last processed step.
     p1_step = torch.where(failed, p1["n_words"] - 1, NO_ERROR_STEP)
     chain_first = err_word_step < p1_step
+    error = torch.where(chain_first, ERR_UNEXPECTED_CODE, p1["error"])
+    error_code = torch.where(chain_first, err_code2, p1["error_code"])
+    if overflow_error and bool((p1["total_len"] > out_bound).any()):
+        # The first word ending past the bound; a code reaches its word's
+        # entry, so the entry's wire code is the code read (glocal).
+        ends = p1["out_off"].long() + p1["out_len"]
+        over = (p1["out_len"] > 0) & (ends > out_bound)
+        step = torch.where(over.any(1), over.int().argmax(1), NO_ERROR_STEP)
+        word = step.clamp(max=over.shape[1] - 1).long()[:, None]
+        code = p1["glocal"].gather(1, p1["out_g"].gather(1, word).long())
+        wins = step < torch.minimum(err_word_step, p1_step)
+        error = torch.where(wins, ERR_UNEXPECTED_CODE, error)
+        error_code = torch.where(wins, code[:, 0], error_code)
     return {
         "out": out,
         "total_len": p1["total_len"],
-        "error": torch.where(chain_first, ERR_UNEXPECTED_CODE, p1["error"]),
-        "error_code": torch.where(chain_first, err_code2,
-                                  p1["error_code"]),
+        "error": error,
+        "error_code": error_code,
     }
 
 

@@ -16,9 +16,11 @@ facades' one stream.
   are scattered into their slots; :func:`lzw_tpu_torch.ops.bitpack.
   pack_codes_torch` packs them.
 * :func:`encode_stream_bytes` launches ``stream_encode.cu`` on one row and
-  packs the dense codes against the schedule
+  packs the dense codes with :func:`pack_dense`, with no slots.
+* :func:`pack_dense` packs either kernel's dense codes to wire bytes, for
+  the facades and the block container alike: against the static schedule
   (:func:`lzw_tpu_torch.kernels.schedule.pack_variable`) or in 12-bit pairs
-  (:func:`lzw_tpu_torch.kernels.encode.pack12`), with no slots.
+  (:func:`lzw_tpu_torch.kernels.encode.pack12`).
 """
 
 from __future__ import annotations
@@ -38,7 +40,7 @@ from lzw_tpu_torch.spec import (
 
 __all__ = ["ERR_NONE", "ERR_UNEXPECTED_CODE", "MAX_ROW", "MAX_STREAM",
            "encode_block", "encode_stream_bytes", "encoder_output_slots",
-           "packed_bound"]
+           "pack_dense", "packed_bound"]
 
 # Error kinds reported in encode_block's result (the host raises the typed
 # exceptions).
@@ -208,16 +210,32 @@ def encode_stream_bytes(data: bytes, spec: LzwSpec,
     if int(err[0]):
         raise UnexpectedCodeError(int(err_code[0]), spec.code_size)
     with stage("enc_pack"):
-        codes = dense[:, : max(int(counts[0]), 1)]
-        if spec.variable:
-            # The first byte is never range-checked, so the first code may
-            # be wider than its slot; the JAX facade's packer and the
-            # oracle keep its low bits.
-            codes[:, 0] &= (1 << spec.initial_width) - 1
-            bufs, n_bytes = _sched.pack_variable(codes, counts, spec,
-                                                 fix_eoi=fix_eoi_width)
-        else:
-            bufs, n_bytes = pack12(codes, counts,
-                                   spec.endianness is Endianness.LITTLE)
+        bufs, n_bytes = pack_dense(dense[:, : max(int(counts[0]), 1)],
+                                   counts, spec, fix_eoi=fix_eoi_width)
     with stage("enc_d2h"):
         return bufs[0, : int(n_bytes[0])].cpu().numpy().tobytes()
+
+
+def pack_dense(dense: torch.Tensor, counts: torch.Tensor, spec: LzwSpec,
+               fix_eoi: bool):
+    """Pack the parse kernels' dense codes to wire bytes on their device:
+    variable specs against the static schedule (``fix_eoi`` as in
+    :func:`lzw_tpu_torch.kernels.schedule.pack_variable`), fixed-12 in
+    12-bit pairs.  ``dense`` i32[N, S] and ``counts`` i32[N] as
+    :func:`lzw_tpu_torch.kernels.encode.encode_blocks_codes` gives them;
+    returns (u8[N, PB], i32[N] byte counts).
+
+    The first byte of a stream is never range-checked, so at a code size
+    below 8 a variable stream's first code can be wider than its slot.  It
+    is masked to ``initial_width`` here, in place in ``dense``'s column 0,
+    as the oracle and the JAX package's ``pack_codes_jax`` keep its low
+    bits; the parse kernels' dense codes (their contract with
+    ``encode_pallas``) keep the whole byte.
+    """
+    if not spec.variable:
+        return pack12(dense, counts, spec.endianness is Endianness.LITTLE)
+    if dense.shape[1]:
+        # In place on the column's view: ``dense[:, 0] &= m`` would also
+        # copy the column back through __setitem__.
+        dense[:, 0].bitwise_and_((1 << spec.initial_width) - 1)
+    return _sched.pack_variable(dense, counts, spec, fix_eoi=fix_eoi)

@@ -32,6 +32,7 @@ from __future__ import annotations
 
 from lzw_tpu_torch.spec import (
     Endianness,
+    LzwError,
     LzwSpec,
     MAX_TABLE_SIZE,
     MAX_WIDTH,
@@ -43,6 +44,7 @@ from lzw_tpu_torch.spec import (
 __all__ = [
     "encode_bytes",
     "decode_bytes",
+    "block_error",
     "encode_codes",
     "pack_codes",
     "unpack_codes_fixed",
@@ -262,13 +264,21 @@ def eoi_width_quirk(codes_and_widths: list[tuple[int, int]], spec: LzwSpec) -> b
 # --------------------------------------------------------------------------- #
 
 
-def decode_bytes(data: bytes, spec: LzwSpec) -> bytes:
+def decode_bytes(data: bytes, spec: LzwSpec,
+                 out_bound: int | None = None) -> bytes:
     """Decode one compressed stream back to bytes.
 
     Mirrors `decoder.rs:174-290` (variable) and `decoder.rs:553-642` (fixed),
     including the stale-table behaviour on dictionary reset.
+
+    ``out_bound``, when given, bounds the output as the block container
+    bounds a block: the code whose word would end past ``out_bound`` bytes
+    raises :class:`UnexpectedCodeError` with that code, the code the
+    container's decode pass 1 flags (the reference's chain-corruption
+    class, `decoder.rs:257-260`).
     """
     spec.validate()
+    bound = float("inf") if out_bound is None else out_bound
     prefix = [0] * MAX_TABLE_SIZE
     suffix = [0] * MAX_TABLE_SIZE
     length = [0] * MAX_TABLE_SIZE
@@ -299,6 +309,8 @@ def decode_bytes(data: bytes, spec: LzwSpec) -> bytes:
             previous, word = _decode_step(
                 code, previous, prefix, suffix, length, next_index, alphabet, clear
             )
+            if len(out) + (1 if word is None else len(word)) > bound:
+                raise UnexpectedCodeError(code)
             if word is None:  # first code after reset: single literal
                 out.append(suffix[code])
                 continue
@@ -318,6 +330,8 @@ def decode_bytes(data: bytes, spec: LzwSpec) -> bytes:
             previous, word = _decode_step(
                 code, previous, prefix, suffix, length, next_index, alphabet, alphabet
             )
+            if len(out) + (1 if word is None else len(word)) > bound:
+                raise UnexpectedCodeError(code)
             if word is None:
                 out.append(suffix[code])
                 continue
@@ -329,6 +343,21 @@ def decode_bytes(data: bytes, spec: LzwSpec) -> bytes:
                 next_index += 1
             previous = code
     return bytes(out)
+
+
+def block_error(payloads, spec: LzwSpec, block_size: int):
+    """The error of the first of ``payloads`` (container blocks, in
+    container order) whose decode fails with its output bounded at
+    ``block_size`` (:func:`decode_bytes`), or None when each decodes: the
+    first failing block's first error in stream order, as the reference
+    decoder meets it: the witness that the container's decoders are held
+    to on corrupt blocks."""
+    for p in payloads:
+        try:
+            decode_bytes(bytes(p), spec, out_bound=block_size)
+        except LzwError as exc:
+            return exc
+    return None
 
 
 def _decode_step(

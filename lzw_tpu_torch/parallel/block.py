@@ -62,17 +62,18 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from lzw_tpu_torch.kernels import schedule as _sched
 from lzw_tpu_torch.kernels.decode import (
     MAX_BLOCK, decode_fixed_all_device, decode_pass1_fixed,
     decode_variable_all_device, prepare_variable_decode, variable_pass1,
 )
-from lzw_tpu_torch.kernels.encode import encode_blocks_codes, pack12
+from lzw_tpu_torch.kernels.encode import encode_blocks_codes
 from lzw_tpu_torch.kernels.nonstrict import decode_variable_nonstrict_device
 from lzw_tpu_torch.native.runtime import NativeRuntime, get_runtime
 from lzw_tpu_torch.ops import decode as _stream
+from lzw_tpu_torch.ops.encode import pack_dense
 from lzw_tpu_torch.parallel import framing
 from lzw_tpu_torch.spec import (
+    BlockOverflowError,
     Endianness,
     LzwError,
     LzwSpec,
@@ -232,6 +233,32 @@ class BlockParallelCodec:
         native ``decode_blocks`` with "host" and with "auto" where it
         builds, else (and always with "device") the single-stream
         decoder's two kernels on the devices.
+
+    The contract on malformed input, on every device and ``pass2`` route:
+
+    * Encode: each block's payload is what the oracle
+      (:mod:`lzw_tpu_torch.ops.reference`) and the single-stream encoders
+      give for that block alone, with the container's EOI width.  A first
+      byte past the alphabet is never range-checked (the reference's
+      encoder does not check it), and its code is masked to
+      ``initial_width`` (:func:`lzw_tpu_torch.ops.encode.pack_dense`), as
+      the JAX container's tested (XLA) route does; a later one raises
+      :class:`UnexpectedCodeError` with the byte.  ``verify=True`` decodes
+      the largest payload back and raises :class:`VerificationError` when
+      that block began past the alphabet, as the JAX container does.
+    * Decode: the first failing block in container order raises its first
+      error in stream order.  A block whose words pass ``block_size``
+      raises :class:`UnexpectedCodeError` with the code that passes it,
+      the code the JAX Pallas pass 1 flags (the reference's
+      chain-corruption class).  Each decoder names it from its own
+      outputs: the container pass 1 for strict blocks, the non-strict
+      route from its sub-streams' words, the single-stream decoder from
+      its words past ``MAX_BLOCK``.  The native ``decode_blocks`` cannot
+      (it raises :class:`BlockOverflowError`), so there the device route
+      decodes the container again and raises the code; should it find
+      none, the :class:`BlockOverflowError` stands.  The JAX XLA route's
+      cut of such a block to ``block_size`` and its native runtime's
+      AssertionError are not copied.
     """
 
     def __init__(self, spec: LzwSpec, block_size: int | None = None,
@@ -374,13 +401,10 @@ class BlockParallelCodec:
         with stage("enc_pack"):
             if self.spec.variable:
                 # Pack only the columns some block filled.
-                width = max(int(counts.max()), 1)
-                bufs, n_bytes = _sched.pack_variable(
-                    dense[:, :width], counts, self.spec, fix_eoi=True
-                )
-            else:
-                little = self.spec.endianness is Endianness.LITTLE
-                bufs, n_bytes = pack12(dense, counts, little)
+                dense = dense[:, : max(int(counts.max()), 1)]
+            # Masks each block's first code to its slot (pack_dense).
+            bufs, n_bytes = pack_dense(dense, counts, self.spec, fix_eoi=True)
+            if not self.spec.variable:
                 bufs = bufs[:, : int(n_bytes.max())]
         with stage("enc_d2h"):
             bufs = bufs.cpu().numpy()
@@ -429,29 +453,41 @@ class BlockParallelCodec:
             )
         if header.n_blocks == 0:
             return b""
-        out = None
         if self.block_size > MAX_BLOCK:
-            if self._native() is None:
-                out = self._decode_big(header, payloads)
+            out = None
         elif self.spec.variable:
             # None: a non-strict (foreign early-CLEAR) stream.
             out = self._decode_variable(payloads)
-            if out is None and self._native() is None:
-                out = self._decode_variable_nonstrict(payloads)
         else:
             out = self._decode_fixed(payloads)
         if out is None:
-            # Blocks past the descriptor bound or non-strict streams, with
-            # the native runtime at hand: its threaded decoder.
-            out = get_runtime().decode_blocks(
-                [bytes(p) for p in payloads], self.spec, self.block_size
-            )
+            out = self._decode_whole(header, payloads)
         if len(out) != header.orig_size:
             raise framing.FramingError(
                 f"decoded {len(out)} bytes, container claims "
                 f"{header.orig_size}"
             )
         return out
+
+    def _decode_whole(self, header, payloads) -> bytes:
+        """Blocks past ``MAX_BLOCK`` or non-strict streams, which pass 1's
+        descriptors cannot carry: the native runtime's threaded decoder
+        where it is at hand, else the device route.  The library does not
+        name the code of a block past ``block_size``; the device route's
+        decoder raises it, or the library's error stands."""
+        def on_device():
+            if self.block_size > MAX_BLOCK:
+                return self._decode_big(header, payloads)
+            return self._decode_variable_nonstrict(payloads)
+
+        if self._native() is None:
+            return on_device()
+        try:
+            return get_runtime().decode_blocks(
+                [bytes(p) for p in payloads], self.spec, self.block_size)
+        except BlockOverflowError:
+            on_device()
+            raise
 
     def _native(self) -> NativeRuntime | None:
         """The native runtime, or None with ``pass2="device"`` or when
@@ -500,7 +536,7 @@ class BlockParallelCodec:
 
         ranges = self._ranges(len(payloads))
         states = self._map(pass1, ranges)
-        self._raise_pass1(states)
+        self._raise_first(states)
         return self._finish(rt, ranges, [s[2] for s in states])
 
     def _decode_variable(self, payloads) -> bytes | None:
@@ -541,7 +577,7 @@ class BlockParallelCodec:
         if not all(strict.all() for strict, _ in passed):
             return None
         states = [s for _, s in passed]
-        self._raise_pass1(states)
+        self._raise_first(states)
         return self._finish(rt, ranges, [s[2] for s in states])
 
     def _decode_variable_nonstrict(self, payloads) -> bytes:
@@ -560,7 +596,8 @@ class BlockParallelCodec:
     def _decode_big(self, header, payloads) -> bytes:
         """Blocks past ``MAX_BLOCK``: both passes of the single-stream
         decoder over each range's rows on its device.  Raises the typed
-        error of the first failing block in container order, then
+        error of the first failing block in container order (a word that
+        ends past ``block_size`` is one: the code that passes it), then
         :class:`framing.FramingError` for the first block whose decoded
         length is not the frame's."""
         bs = self.block_size
@@ -575,7 +612,8 @@ class BlockParallelCodec:
                 mat_t = torch.from_numpy(mat).to(r.device)
                 plens_t = torch.from_numpy(plens).to(r.device)
             with stage("dec_stream"):
-                res = _stream.decode_block(mat_t, plens_t, self.spec, bs)
+                res = _stream.decode_block(mat_t, plens_t, self.spec, bs,
+                                           overflow_error=True)
             stats = _host(torch.stack([res["error"].long(),
                                        res["error_code"].long(),
                                        res["total_len"]]))
@@ -583,10 +621,8 @@ class BlockParallelCodec:
 
         ranges = self._ranges(len(payloads))
         states = self._map(run, ranges)
-        for (errs, codes, _), _ in states:
-            if errs.any():
-                i = int(np.argmax(errs != 0))
-                _stream.raise_decode_error(int(errs[i]), int(codes[i]))
+        self._raise_first([stats for stats, _ in states],
+                          _stream.raise_decode_error)
         totals = np.concatenate([stats[2] for stats, _ in states])
         want = np.full(len(payloads), bs, np.int64)
         want[-1] = header.orig_size - (len(payloads) - 1) * bs
@@ -602,13 +638,19 @@ class BlockParallelCodec:
         return self._fetch(ranges, flats)
 
     @staticmethod
-    def _raise_pass1(states) -> None:
-        """Raise the pass-1 error of the first failing block in container
-        order: ``states`` are the ranges' (errs, err_codes, ...) in block
-        order."""
+    def _raise_first(states, raise_error=None) -> None:
+        """Raise the error of the first failing block in container order:
+        ``states`` are the ranges' (errs, err_codes, ...) in block order,
+        each block's first error in stream order as its decoder reports
+        it, a word that ends past ``block_size`` included (on the code
+        that passes it).  ``raise_error(err, code)`` raises an error kind
+        of the single-stream decoder; without it every kind is the
+        container pass 1's, an :class:`UnexpectedCodeError`."""
         for errs, err_codes, _ in states:
             if errs.any():
                 i = int(np.argmax(errs != 0))
+                if raise_error is not None:
+                    raise_error(int(errs[i]), int(err_codes[i]))
                 raise UnexpectedCodeError(int(err_codes[i]))
 
     def _finish(self, rt, ranges: list[_Range], states) -> bytes:

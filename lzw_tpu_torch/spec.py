@@ -23,6 +23,7 @@ __all__ = [
     "UnexpectedCodeError",
     "MissingClearCodeError",
     "TruncatedStreamError",
+    "BlockOverflowError",
     "VerificationError",
     "MAX_WIDTH",
     "MAX_TABLE_SIZE",
@@ -112,6 +113,18 @@ class TruncatedStreamError(DecodingError):
 
     def __init__(self):
         super().__init__("Compressed stream ended unexpectedly")
+
+
+class BlockOverflowError(DecodingError):
+    """A container block decodes past its ``block_size``, and the decoder
+    that found it cannot name the code that passes the bound (the native
+    runtime's ``decode_blocks``, whose library reports only a full
+    buffer).  The block container names it: see
+    :class:`lzw_tpu_torch.BlockParallelCodec`."""
+
+    def __init__(self, block_size: int):
+        self.block_size = block_size
+        super().__init__(f"A block decodes past its {block_size} bytes")
 
 
 class VerificationError(EncodingError):

@@ -285,6 +285,68 @@ def test_container_device_pass2_on_card(name, cuda, monkeypatch):
     assert build.LAUNCHES["word_ends"] == before["word_ends"] + 1
 
 
+def test_first_byte_past_the_alphabet_on_card(cuda):
+    """Every block's first byte past the alphabet: the card's payloads are
+    the native single-stream encode of each block (the first code masked
+    to its slot) and the CPU plain route's; ``verify=True`` raises."""
+    from lzw_tpu_torch import VerificationError
+    from lzw_tpu_torch.native.runtime import get_runtime
+    from lzw_tpu_torch.parallel import framing
+
+    spec, block = LzwSpec.gif(2), 4096
+    rng = np.random.default_rng(13)
+    mat = rng.integers(0, 4, size=(16, block)).astype(np.uint8)
+    mat[:, 0] = rng.integers(4, 256, size=16)
+    data = mat.tobytes()
+    container = BlockParallelCodec(spec, block, device=cuda,
+                                   verify=False).encode(data)
+    rt = get_runtime()
+    assert [bytes(p) for p in framing.parse_frame(container)[1]] == [
+        rt.encode(row.tobytes(), spec, fix_eoi=True) for row in mat]
+    assert container == BlockParallelCodec(spec, block, device="cpu",
+                                           verify=False).encode(data)
+    with pytest.raises(VerificationError):
+        BlockParallelCodec(spec, block, device=cuda, verify=True).encode(data)
+
+
+@pytest.mark.parametrize("kind", ["strict", "foreign", "big"])
+def test_block_past_block_size_on_card(kind, cuda):
+    """A block holding a stream longer than the block raises the plain
+    route's UnexpectedCodeError code on every ``pass2`` route: a strict
+    stream (pass 1 names the code), a foreign early-CLEAR one (the native
+    ``decode_blocks`` on "auto" and "host", then the non-strict device
+    route) and one past ``MAX_BLOCK`` (``decode_blocks``, then the
+    single-stream decoder)."""
+    from lzw_tpu_torch import UnexpectedCodeError
+    from lzw_tpu_torch.kernels.decode import MAX_BLOCK
+    from lzw_tpu_torch.native.runtime import get_runtime
+    from lzw_tpu_torch.parallel import framing
+    from lzw_tpu_torch.utils.testdata import spliced_nonstrict_stream
+
+    spec = LzwSpec.gif(7)
+    block = 2 * MAX_BLOCK if kind == "big" else 8192
+    n = 3 if kind == "big" else 8
+    mat, _ = _blocks(spec, n + 1, block, seed=17)
+    data = mat[:n].tobytes()
+    payloads = [bytes(p) for p in framing.parse_frame(BlockParallelCodec(
+        spec, block, device=cuda).encode(data))[1]]
+    longer = mat[n].tobytes() + mat[0, :700].tobytes()
+    if kind == "foreign":
+        payloads[1] = spliced_nonstrict_stream(longer, spec, 1000,
+                                               device=cuda)
+    else:
+        payloads[1] = get_runtime().encode(longer, spec, fix_eoi=True)
+    frame = framing.pack_frame(spec, block, len(data), payloads)
+    with pytest.raises(UnexpectedCodeError) as plain:
+        BlockParallelCodec(spec, block, device="cpu", pass2="device").decode(
+            frame)
+    for route in ("auto", "host", "device"):
+        with pytest.raises(UnexpectedCodeError) as info:
+            BlockParallelCodec(spec, block, device=cuda, pass2=route).decode(
+                frame)
+        assert info.value.code == plain.value.code, route
+
+
 def _split_devices():
     """Every visible GPU, or cuda:0 twice on a one-GPU machine (two ranges
     at once on one card)."""
