@@ -58,7 +58,9 @@ Phases, one line each, any failure exits non-zero:
    ``probe_gpu all`` at the JAX scripts' shapes, counted to launch each
    of the four probe kernels, every gather OK and the sweep's time
    following T; then each probe kernel against its plain version on the
-   same inputs in every variant, exact, and the yardstick library calls;
+   same inputs in every variant, exact; P1's times beside its chain floor;
+   P4-a and P4-b beside the yardstick library calls, in turns, and each
+   launch alone (20 in one CUDA graph);
 9. the row split: ``BlockParallelCodec`` over every visible GPU (and, on a
    one-GPU machine, over ``["cuda:0", "cuda:0"]``: two ranges at once on
    one card) beside one device, on the 128 MiB gif7 image and the 32 MiB
@@ -135,11 +137,14 @@ Phases, one line each, any failure exits non-zero:
    same for a foreign early-CLEAR 68 KiB stream in that container (the
    non-strict route) and for a 260 KiB stream in a container of 8 x
    256 KiB blocks (past ``MAX_BLOCK``: the single-stream decoder), where
-   "host" and "auto" first call the native ``decode_blocks``.
+   "host" and "auto" first call the native ``decode_blocks``; and in that
+   container a stream that fills its block, then a CLEAR and a first code
+   naming an entry never inserted: every route raises the wire code read.
 
 ``python3 chip_smoke.py --stream-only`` runs phases 1, 2 and 14 alone
 (about two minutes), ``python3 chip_smoke.py --contract-only`` phases 1, 2
-and 16; each ends with ``[done]`` lines, not the JSON lines.
+and 16, ``python3 chip_smoke.py --probes-only`` phases 1, 2 and 8; each
+ends with ``[done]`` lines, not the JSON lines.
 
 Phases 1-8 run on cuda:0.  Each timing of the encode-parse and pass-1
 kernels also prints their chains in flight (CTAs per SM from the occupancy
@@ -273,6 +278,26 @@ def once_ms(fn) -> tuple[float, object]:
     out = fn()
     torch.cuda.synchronize()
     return (time.perf_counter() - t0) * 1e3, out
+
+
+def graph_ms(fn, n: int = 20) -> float:
+    """Milliseconds a call of ``fn`` on the card alone: ``n`` calls captured
+    in one CUDA graph, replayed by CUDA events, over ``n`` (the host's
+    launch path left out)."""
+    import torch
+
+    from lzw_tpu_torch.utils.card import cuda_ms
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()  # warm-up off the capturing stream
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    return cuda_ms(graph.replay, 10) / n
 
 
 def max_abs_err(got, want) -> int:
@@ -897,12 +922,56 @@ def run_stride1(spec, data: bytes, block: int, label: str,
     return launches, res
 
 
+def launch_path_us(tab, idx, idx64, calls: int = 2000) -> dict[str, float]:
+    """Host microseconds a call of P4-b's wrapper (``probe.gather_lanes``)
+    and of each piece of its launch path, by the host clock over ``calls``
+    calls each (the launches only enqueue), beside ``torch.gather``."""
+    import torch
+
+    from lzw_tpu_torch.kernels import build, probe
+
+    dev = tab.device
+    out = torch.empty_like(idx)
+    fn = build.bound("probe_gather", "gather_lanes_launch")
+    handle = build.stream(dev)
+    ptrs = (tab.data_ptr(), idx.data_ptr(), out.data_ptr())
+    pieces = {
+        "wrapper": lambda: probe.gather_lanes(tab, idx),
+        "torch.gather": lambda: torch.gather(tab, 0, idx64),
+        "checks": lambda: probe._check_gather(tab, idx),
+        "output": lambda: torch.empty_like(idx),
+        "on_device": lambda: build.on_device(dev).__enter__(),
+        "stream": lambda: build.stream(dev),
+        "bound": lambda: build.bound("probe_gather", "gather_lanes_launch"),
+        "ctypes launch": lambda: fn(*ptrs, tab.shape[0], tab.shape[1],
+                                    idx.numel(), handle),
+        "check_launch": lambda: build.check_launch("probe_gather", 0),
+    }
+    res = {}
+    counted = build.LAUNCHES["probe_gather"]
+    for name, piece in pieces.items():
+        piece()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            piece()
+        res[name] = (time.perf_counter() - t0) / calls * 1e6
+        torch.cuda.synchronize()
+    build.LAUNCHES["probe_gather"] = counted  # these calls are no launches
+    return res
+
+
 def run_probes(device):
     """Phase 8: the four probe CLIs as a user runs them, at the JAX
     scripts' shapes, counted to launch each probe kernel; every gather must
     be right and the sweep's time must follow its step count.  Then each
     probe kernel against its plain version on the same inputs, every
-    variant, and the library calls that compute P4-a and P4-b.
+    variant (P1 on the script's x and on x + 4); P1's times beside its
+    chain floor (B steps of one dependent shared load, timed here by
+    ``chain_probe``); P4-a and P4-b beside the library calls that compute
+    them, in turns (kernel, library, library, kernel), and each launch
+    alone: 20 launches captured in one CUDA graph and replayed, so the
+    device's time stands apart from the host's launch path.
 
     Returns (the launch counts, {kernel: Result}); each kernel's Result is
     that of the variant named in its source's note: P1 ``scan``, P2
@@ -911,8 +980,8 @@ def run_probes(device):
     import torch
 
     from lzw_tpu_torch.kernels import ablate, probe
-    from lzw_tpu_torch.scripts import (ablate2, ablate_kernel, probe_gpu,
-                                       probe_i16)
+    from lzw_tpu_torch.scripts import (ablate2, ablate_kernel, chain_probe,
+                                       probe_gpu, probe_i16)
     from lzw_tpu_torch.utils.card import cuda_ms
 
     def drive():
@@ -993,8 +1062,6 @@ def run_probes(device):
         8, 128)
     errs["P4-a"] = max_abs_err((probe.affine(x),),
                                (probe.affine_reference(x),))
-    a_ms = cuda_ms(lambda: probe.affine(x), 20)
-    a_lib = cuda_ms(lambda: x * 2 + 1, 20)
     rng = np.random.default_rng(0)
     for height in (8192, *probe_gpu.HEIGHTS):
         tab, idx = probe_gpu.gather_inputs(height, 128, rng)
@@ -1002,11 +1069,7 @@ def run_probes(device):
         plain_ms, ref = once_ms(lambda: probe.gather_lanes_reference(tab, idx))
         errs[f"P4-b H={height}"] = max_abs_err((got,), (ref,))
         if height == 8192:
-            idx64 = idx.long()
-            res["probe_gather"] = result(
-                errs["P4-b H=8192"], p4["b"][1], plain_ms,
-                3 * 4 * idx.numel(), idx.numel(),
-                cuda_ms(lambda: torch.gather(tab, 0, idx64), 20))
+            b_tab, b_idx, b_plain_ms = tab, idx, plain_ms
             got = probe.gather_loop(tab, idx)
             loop_plain_ms, ref = once_ms(
                 lambda: probe.gather_loop_reference(tab, idx))
@@ -1017,18 +1080,48 @@ def run_probes(device):
     bad = {k: v for k, v in errs.items() if v}
     if bad:
         raise AssertionError(f"probes: kernel != plain, max_abs_err {bad}")
+    idx64 = b_idx.long()
+    calls = {"P4-a": lambda: probe.affine(x), "x * 2 + 1": lambda: x * 2 + 1,
+             "P4-b": lambda: probe.gather_lanes(b_tab, b_idx),
+             "torch.gather": lambda: torch.gather(b_tab, 0, idx64)}
+    turns = {name: [] for name in calls}
+    for a, b in (("P4-a", "x * 2 + 1"), ("P4-b", "torch.gather")):
+        for name in (a, b, b, a):
+            turns[name].append(cuda_ms(calls[name], 200))
+    alone = {name: graph_ms(fn) for name, fn in calls.items()}
+    path = launch_path_us(b_tab, b_idx, idx64)
+    res["probe_gather"] = result(
+        errs["P4-b H=8192"], sum(turns["P4-b"]) / 2, b_plain_ms,
+        3 * 4 * b_idx.numel(), b_idx.numel(),
+        sum(turns["torch.gather"]) / 2)
+    host, start = chain_probe.table("load")
+    steps = 1 << 20
+    load_ns = cuda_ms(lambda: probe.chain_steps(
+        torch.from_numpy(host).to(device), start, "load", 1, steps),
+        1) * 1e6 / steps
+    floor_ms = ablate_kernel.STEPS * load_ns / 1e6
     say("probes", "every probe kernel == its plain version (max_abs_err 0): "
         + ", ".join(errs) + f"; launches {launches}")
-    say("probes", "P1 ablate_parse ms by variant (G=2 B=4096 x 128 lanes): "
-        + ", ".join(f"{v} {ms:.4f}" for v, (ms, _) in p1.items())
+    say("probes", "P1 ablate_parse ms by variant (G=2 B=4096 x 128 lanes) "
+        "[ns a step]: " + ", ".join(
+            f"{v} {ms:.4f} [{ms * 1e6 / ablate_kernel.STEPS:.1f}]"
+            for v, (ms, _) in p1.items())
+        + f"; chain floor {floor_ms:.4f} ms ({ablate_kernel.STEPS} steps x "
+        f"{load_ns:.2f} ns a dependent shared load); bytes bound "
+        f"{res['ablate_parse'].bound_ms:.5f} ms"
         + "; P2 ablate_ring ms (4096 steps x 1024 lanes, cell 512): "
         + ", ".join(f"{v} {ms:.4f}" for v, (ms, _) in p2.items()))
     say("probes", "P3 probe_scan best ms: " + ", ".join(
         f"{dt} T={t} {ms:.4f}" for t, by in p3.items()
         for dt, ms in by.items())
         + f"; int32/int16 at T=512 {p3[512]['int32'] / p3[512]['int16']:.3f}")
-    say("probes", f"P4-a {a_ms:.4f} ms (library call x * 2 + 1 "
-        f"{a_lib:.4f} ms); P4-b2 {p4['b2']:.1f} ns per dependent gather of "
+    say("probes", "P4 ms a call by CUDA events over 200 calls, in turns "
+        "[alone: 20 launches in one CUDA graph]: " + ", ".join(
+            f"{name} " + " / ".join(f"{t:.4f}" for t in ts)
+            + f" [{alone[name]:.4f}]" for name, ts in turns.items())
+        + "; P4-b's launch path, host us a call: " + ", ".join(
+            f"{k} {v:.2f}" for k, v in path.items())
+        + f"; P4-b2 {p4['b2']:.1f} ns per dependent gather of "
         f"128 (256 in a chain, plain {loop_plain_ms:.1f} ms), "
         f"{(chain_ms[4096] - chain_ms[256]) / 3840 * 1e6:.1f} ns per "
         f"dependent gather between chains of 256 ({chain_ms[256]:.4f} ms) "
@@ -1566,13 +1659,14 @@ CORRUPT_TIFF = bytes([0x1F, 0x40, 0x3A, 0, 0, 0, 0x44, 0, 0, 0x44, 0, 0x60,
 def stream_peak(spec, n_rows: int, m: int, out_bound: int) -> int:
     """Device bytes of ``ops.decode.decode_block`` on ``n_rows`` rows of
     ``m`` payload bytes: the payloads and lengths, pass 1's tables (three
-    i32 [N, G]), words (three i32 and a bool [N, S]) and per-row results,
-    pass 2's output u8 [N, out_bound] and its i64 per-row key."""
+    i32 [N, G]), words (three i32, a bool and the i16 wire code [N, S])
+    and per-row results, pass 2's output u8 [N, out_bound] and its i64
+    per-row key."""
     from lzw_tpu_torch.ops.decode import pass1_step_bound
 
     s = pass1_step_bound(m, spec)
     g = spec.alphabet_size + s + 2
-    return n_rows * (m + 4 + 12 * g + 13 * s + 24 + out_bound + 8)
+    return n_rows * (m + 4 + 12 * g + 15 * s + 24 + out_bound + 8)
 
 
 def error_streams(spec_var, spec_tiff) -> dict[str, tuple]:
@@ -1957,8 +2051,9 @@ def compare_stream(spec, mat, lens, plain: PlainPass1, label: str, device,
     Bounds, in bytes, count what the work needs of this run's data, not
     the arrays' sizes: pass 1 reads the valid payload bytes, the epoch
     table and the lengths, and writes the table entries it fills (the
-    roots and the inserts, 12 B each), its words (13 B each) and per-row
-    results (24 B); pass 2 reads those words and entries (8 B each: the
+    roots and the inserts, 12 B each), its words (15 B each, their wire
+    code too) and per-row results (24 B); pass 2 reads those words (13 B
+    each, not the code) and entries (8 B each: the
     prefix and the suffix) and writes the decoded bytes kept under
     ``out_bound`` and 8 B per row."""
     import torch
@@ -1975,8 +2070,8 @@ def compare_stream(spec, mat, lens, plain: PlainPass1, label: str, device,
     planes = [[got[k] for k in keys] for keys in (
         sdec._TABLE_KEYS, sdec._WORD_KEYS, sdec._ROW_KEYS)]
     alone1 = cuda_ms(lambda: sdec._launch_pass1(
-        rows, lens_t, spec, planes[0], planes[1], got["out_lit"], planes[2],
-        got["total_len"]), STREAM_REPS)
+        rows, lens_t, spec, planes[0], planes[1], got["out_lit"],
+        got["out_code"], planes[2], got["total_len"]), STREAM_REPS)
     want, plain_ms = plain.result()
     keys = list(want)
     err1 = max_abs_err([got[k] for k in keys], [want[k] for k in keys])
@@ -1993,7 +2088,7 @@ def compare_stream(spec, mat, lens, plain: PlainPass1, label: str, device,
     epoch_bytes = 4 * len(sdec.epoch_widths(spec)[1])
     res = {"stream_pass1": result(
         err1, ms1, plain_ms, int(lens.sum()) + epoch_bytes + 4 * n
-        + 12 * entries + 13 * codes + 24 * n, 0)}
+        + 12 * entries + 15 * codes + 24 * n, 0)}
     if out_bound is None:
         out_bound = max(int(got["total_len"].max()), 1)
     args = [got[k] for k in sdec.PASS2_KEYS] + [out_bound, alphabet]
@@ -2256,8 +2351,13 @@ def run_contract(image: bytes, smi: str, device) -> list[dict]:
     call the native ``decode_blocks`` first, which cannot name the code),
     the plain route's, the plain witness's (pass 1 on the crossing epoch
     bounded at the room the earlier epochs leave; the single-stream
-    decoder's word past the block) and the bounded oracle's.  Returns the
-    counted runs' launches."""
+    decoder's word past the block) and the bounded oracle's.  Last, the
+    same 8 x 256 KiB container with block 5 a stream that fills its block
+    exactly, then a CLEAR and a first code naming an entry never inserted
+    (``testdata.uninit_literal_stream``): that one-byte literal passes the
+    block, and every route must raise the wire code read (255), which the
+    single-stream pass 1 gives in ``out_code`` (its ``glocal`` names 0).
+    Returns the counted runs' launches."""
     import numpy as np
     import torch
 
@@ -2274,7 +2374,9 @@ def run_contract(image: bytes, smi: str, device) -> list[dict]:
     from lzw_tpu_torch.ops.encode import pack_dense
     from lzw_tpu_torch.parallel import framing
     from lzw_tpu_torch.utils.card import cuda_ms
-    from lzw_tpu_torch.utils.testdata import spliced_nonstrict_stream
+    from lzw_tpu_torch.utils.testdata import (
+        spliced_nonstrict_stream, uninit_literal_stream,
+    )
 
     t0 = time.perf_counter()
     block = 1 << 16
@@ -2415,14 +2517,23 @@ def run_contract(image: bytes, smi: str, device) -> list[dict]:
     data_big = image[: 8 * big]
     payloads_big = [bytes(p) for p in framing.parse_frame(BlockParallelCodec(
         gif7, big, device=device).encode(data_big))[1]]
+    payloads_uninit = list(payloads_big)
     payloads_big[3] = rt.encode(image[20 * MiB : 20 * MiB + big + 4096],
                                 gif7, fix_eoi=True)
-    row = torch.from_numpy(np.frombuffer(payloads_big[3], np.uint8)[None]
-                           .copy())
-    res = sdec.decode_block(row, torch.tensor([row.shape[1]],
-                                              dtype=torch.int32),
-                            gif7, big, overflow_error=True)
-    plain_big = (int(res["error"][0]), int(res["error_code"][0]))
+    payloads_uninit[5], wire = uninit_literal_stream(gif7, big)
+
+    def plain_single(stream):
+        row = torch.from_numpy(np.frombuffer(stream, np.uint8)[None].copy())
+        res = sdec.decode_block(row, torch.tensor([row.shape[1]],
+                                                  dtype=torch.int32),
+                                gif7, big, overflow_error=True)
+        return int(res["error"][0]), int(res["error_code"][0])
+
+    plain_big = plain_single(payloads_big[3])
+    plain_uninit = plain_single(payloads_uninit[5])
+    if plain_uninit[1] != wire:
+        raise AssertionError(f"gif7 uninit literal: the plain decoder names "
+                             f"{plain_uninit}, not the wire code {wire}")
     clean7[37] = foreign
     # Each case: its container, block size, the kernel its device route
     # launches, the plain route's outcome, the plain witness's (err kind,
@@ -2434,6 +2545,10 @@ def run_contract(image: bytes, smi: str, device) -> list[dict]:
         "big": (framing.pack_frame(gif7, big, len(data_big), payloads_big),
                 big, "stream_pass1", ("UnexpectedCodeError", plain_big[1]),
                 plain_big, sdec.ERR_UNEXPECTED_CODE, payloads_big[3]),
+        "uninit literal": (
+            framing.pack_frame(gif7, big, len(data_big), payloads_uninit),
+            big, "stream_pass1", ("UnexpectedCodeError", wire),
+            plain_uninit, sdec.ERR_UNEXPECTED_CODE, payloads_uninit[5]),
     }
     for case, (frame, bs, kernel, want, (w_err, w_code), kind, stream) in (
             cases.items()):
@@ -2520,6 +2635,11 @@ def main(only: str | None = None) -> int:
         return 0
     if only == "--contract-only":
         launches = run_contract(tile(tokyo, 128 * MiB), smi, device)
+        say("done", f"launches {launches}; wall time "
+            f"{time.perf_counter() - t_start:.1f} s; {smi}")
+        return 0
+    if only == "--probes-only":
+        launches, _ = run_probes(device)
         say("done", f"launches {launches}; wall time "
             f"{time.perf_counter() - t_start:.1f} s; {smi}")
         return 0
@@ -2653,6 +2773,8 @@ def main(only: str | None = None) -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--multihost-worker"]:
         sys.exit(multihost_worker(sys.argv[2:]))
-    if sys.argv[1:] not in ([], ["--stream-only"], ["--contract-only"]):
-        sys.exit(f"usage: {sys.argv[0]} [--stream-only | --contract-only]")
+    if sys.argv[1:] not in ([], ["--stream-only"], ["--contract-only"],
+                            ["--probes-only"]):
+        sys.exit(f"usage: {sys.argv[0]} [--stream-only | --contract-only | "
+                 "--probes-only]")
     sys.exit(main(only=(sys.argv[1:] or [None])[0]))

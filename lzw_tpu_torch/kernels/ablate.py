@@ -36,28 +36,31 @@ P2 variants (``x`` i32[steps, *lanes], every lane on its own):
   ``j`` is the step's index within its cell of ``cell`` steps; ``matched``
   is the larger of the table's and the ring's largest matching row.
 
-The kernels (``csrc/ablate_parse.cu``, ``csrc/ablate_ring.cu``) keep each
-lane's dictionary as an open-addressed hash of key -> row in device memory
-(``csrc/lane_hash.cuh``) where the TPU compare-scanned a table of rows, so
-they are exact for inputs in ``[0, 2**23)``, where keys stay non-negative
-int32; the plain versions are the TPU kernels' literal arithmetic and hold
-for every int32 input.
+The kernels keep each lane's dictionary as an open-addressed hash of key
+-> row where the TPU compare-scanned a table of rows: ``csrc/ablate_parse.cu``
+in shared memory (8 lanes a CTA, a lockstep group one thread block
+cluster, :data:`PARSE_LAYOUT`), ``csrc/ablate_ring.cu`` in device memory
+(``csrc/lane_hash.cuh``).  So they are exact for inputs in ``[0, 2**23)``,
+where no key is the empty row's -1; the plain versions are the TPU
+kernels' literal arithmetic and hold for every int32 input.
 """
 
 from __future__ import annotations
 
-import ctypes
+import math
+from typing import NamedTuple
 
 import torch
 
 from lzw_tpu_torch.kernels import build
 
-__all__ = ["PARSE_VARIANTS", "RING_VARIANTS", "ablate_parse",
-           "ablate_parse_reference", "ablate_ring", "ablate_ring_reference"]
+__all__ = ["PARSE_LAYOUT", "PARSE_VARIANTS", "RING_VARIANTS", "ParseLayout",
+           "ablate_parse", "ablate_parse_reference", "ablate_ring",
+           "ablate_ring_reference", "parse_grid"]
 
 FIRST_CODE = 256
 TABLE_FULL = 4096  # no insert once nxt reaches this
-_HASH_SLOTS = 8192  # per lane (matches csrc/lane_hash.cuh)
+_HASH_SLOTS = 8192  # per lane of P2 (matches csrc/lane_hash.cuh)
 _RING_PARTS = 4  # threads per lane in csrc/ablate_ring.cu
 _RING_LANES_PER_CTA = 8
 
@@ -69,9 +72,45 @@ PARSE_VARIANTS = {
     "scan_wininsert": _WININSERT, "seg2": _SEG2,
     "gempty": _EMPTY, "gscan_noins": _NOINSERT, "gscan": _SCAN,
 }
+_LOCKSTEP = (_WININSERT, _SEG2)
 _RING_EMPTY, _RING_SCAN, _RING_RING = range(3)
 RING_VARIANTS = {"empty": _RING_EMPTY, "scan": _RING_SCAN,
                  "ring": _RING_RING}
+
+
+class ParseLayout(NamedTuple):
+    """``ablate_parse.cu``'s CTA (its kLanesPerCta, kThreads, kMaxCluster
+    and kSharedBytes; the launch function refuses another)."""
+
+    lanes_per_cta: int  # one warp a lane
+    threads: int
+    max_cluster: int  # CTAs of a lockstep group, one thread block cluster
+    shared_bytes: int
+
+
+# A lane: 6144 u16 hash slots, the key of each of rows 256..4095 (u32) and
+# 64 steps of x (two buffers) and of out (i32); then each warp's nxt and
+# the cluster's minima (i32, two buffers each) and their two mbarriers.
+PARSE_LAYOUT = ParseLayout(
+    8, 256, 16, 8 * (2 * 6144 + 4 * 3840 + 4 * 3 * 64) + 4 * 2 * 8
+    + 4 * 2 * 16 + 8 * 2)
+
+
+def parse_grid(groups: int, lanes: int, variant: str) -> tuple[int, int,
+                                                                int]:
+    """(CTAs a group, groups, CTAs a cluster) of an ``ablate_parse``
+    launch; raises when a lockstep group needs a larger cluster than the
+    card's 16."""
+    kind = _variant(PARSE_VARIANTS, variant)
+    ctas = math.ceil(lanes / PARSE_LAYOUT.lanes_per_cta)
+    if kind not in _LOCKSTEP:
+        return ctas, groups, 1
+    if ctas > PARSE_LAYOUT.max_cluster:
+        raise ValueError(
+            f"{variant} runs a group of {lanes} lanes as one cluster of "
+            f"{PARSE_LAYOUT.lanes_per_cta} lanes a CTA: at most "
+            f"{PARSE_LAYOUT.max_cluster * PARSE_LAYOUT.lanes_per_cta} lanes")
+    return ctas, groups, ctas
 
 
 def _variant(table: dict[str, int], variant: str) -> int:
@@ -104,7 +143,9 @@ def ablate_parse(x: torch.Tensor, variant: str, *, table_rows: int = 4608,
     """P1: the lockstep toy parse of ``x`` i32[G, B, L] -> out i32[G, B, L].
 
     CPU tensors run :func:`ablate_parse_reference`; CUDA tensors run the
-    kernel (exact for inputs in ``[0, 2**23)``), anything else raises.
+    kernel (exact for inputs in ``[0, 2**23)``; the lockstep variants
+    ``scan_wininsert`` and ``seg2`` take at most 128 lanes, see
+    :func:`parse_grid`), anything else raises.
     """
     kind = _variant(PARSE_VARIANTS, variant)
     _check_parse(x, table_rows, seg)
@@ -113,17 +154,13 @@ def ablate_parse(x: torch.Tensor, variant: str, *, table_rows: int = 4608,
                                       seg=seg)
     dev = _cuda_device(x)
     G, B, L = x.shape
-    fn = build.load("ablate_parse").ablate_parse_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 5
-                   + [ctypes.c_void_p] * 2)
-    with torch.cuda.device(dev):
-        tables = torch.empty((G * L, _HASH_SLOTS), dtype=torch.int64,
-                             device=dev)
+    parse_grid(G, L, variant)
+    fn = build.bound("ablate_parse", "ablate_parse_launch")
+    with build.on_device(dev):
         out = torch.empty_like(x)
-        stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(x.data_ptr(), out.data_ptr(), G, B, L, seg, kind,
-                tables.data_ptr(), stream)
+                PARSE_LAYOUT.lanes_per_cta, PARSE_LAYOUT.shared_bytes,
+                build.stream(dev))
     build.check_launch("ablate_parse", rc)
     return out
 
@@ -206,17 +243,13 @@ def ablate_ring(x: torch.Tensor, variant: str, *, cell: int = 512,
     if lanes % _RING_LANES_PER_CTA:
         raise ValueError(f"lanes ({lanes}) must be a multiple of "
                          f"{_RING_LANES_PER_CTA}")
-    fn = build.load("ablate_ring").ablate_ring_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 5
-                   + [ctypes.c_void_p] * 2)
-    with torch.cuda.device(dev):
+    fn = build.bound("ablate_ring", "ablate_ring_launch")
+    with build.on_device(dev):
         tables = torch.empty((lanes, _HASH_SLOTS), dtype=torch.int64,
                              device=dev)
         out = torch.empty_like(x)
-        stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(x.data_ptr(), out.data_ptr(), steps, lanes, cell, ring, kind,
-                tables.data_ptr(), stream)
+                tables.data_ptr(), build.stream(dev))
     build.check_launch("ablate_ring", rc)
     return out
 

@@ -15,6 +15,15 @@ matches.  Nothing here runs at import time.  A missing ``nvcc`` or a
 failed build raises: there is no fallback to the plain versions for CUDA
 tensors.
 
+Every C function of the kernels has its prototype in :data:`PROTOTYPES`
+(library, symbol, parameters; each returns an ``int``).  :func:`load`
+binds them once, when the library loads, under the kernel's lock, and
+:func:`bound` hands a wrapper the bound function: no wrapper sets
+``argtypes`` (without which ctypes cuts a pointer to 32 bits) on a call.
+A wrapper's launch path is then: its checks, :func:`bound`,
+:func:`on_device` (no switch when the tensor's device is current), the
+outputs, the call with :func:`stream`'s raw handle, :func:`check_launch`.
+
 Every wrapper adds one to its kernel's count in :data:`LAUNCHES` where it
 launches the kernel, so a run can show that its main path went through the
 kernels.  A source with several launch functions (``probe_gather.cu``)
@@ -30,11 +39,15 @@ import pathlib
 import shutil
 import subprocess
 import threading
+from contextlib import nullcontext
+
+import torch
 
 from lzw_tpu_torch.utils import cache
 
-__all__ = ["KERNELS", "LAUNCHES", "BuildError", "find_nvcc", "load",
-           "library_path", "reset_counts", "check_launch", "require_tensor"]
+__all__ = ["KERNELS", "LAUNCHES", "PROTOTYPES", "BuildError", "find_nvcc",
+           "load", "bound", "argtypes", "library_path", "on_device", "stream",
+           "reset_counts", "check_launch", "require_tensor"]
 
 _HERE = pathlib.Path(__file__).resolve().parent
 CSRC = _HERE / "csrc"
@@ -51,9 +64,38 @@ DEFAULT_NVCC = "/usr/local/cuda/bin/nvcc"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 
+# Every C function of every kernel library: {kernel: {symbol: parameters}},
+# one letter a parameter: P a pointer or the stream (c_void_p), I an int,
+# L an int64_t, U an unsigned; each returns an int, the CUDA error (0 on
+# success).  tests/test_torch_bind.py holds it against the sources'
+# extern "C" signatures.
+PROTOTYPES = {
+    "encode_parse": {"encode_parse_launch": "PPIIIIIPPPPPIIIP",
+                     "encode_parse_occupancy": "IIP"},
+    "decode_pass1": {"decode_pass1_launch": "PPIIIIIPPPPPIPPPIIIP",
+                     "decode_pass1_occupancy": "IIP"},
+    "word_ends": {"word_ends_launch": "PPIIIPP"},
+    "decode_pass2": {"decode_pass2_launch": "PPPPPPPIIIIIPP"},
+    "decode_pass2_stride1": {"decode_pass2_stride1_launch": "PPPPPPPIIIIIPP"},
+    "stream_encode": {"stream_encode_launch": "PLPIIIIIPPPPIIIP"},
+    "stream_pass1": {"stream_pass1_launch": "PPP" + "I" * 13 + "P" * 14},
+    "stream_pass2": {"stream_pass2_launch": "PPPPPPPIIIIIIIIPPP"},
+    "ablate_parse": {"ablate_parse_launch": "PPIIIIIIIP"},
+    "ablate_ring": {"ablate_ring_launch": "PPIIIIIPP"},
+    "probe_scan": {"probe_scan_launch": "PPIIIIUP"},
+    "probe_gather": {"affine_launch": "PPIP",
+                     "gather_lanes_launch": "PPPIIIP",
+                     "gather_loop_launch": "PPPIIIIP"},
+    "chain_probe": {"chain_probe_launch": "PUIIIPPPP"},
+}
+_CTYPES = {"P": ctypes.c_void_p, "I": ctypes.c_int, "L": ctypes.c_int64,
+           "U": ctypes.c_uint}
+
 LAUNCHES = {name: 0 for name in KERNELS}
 _count_lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
+# (kernel, symbol) -> the library's function, its prototype set.
+_bound: dict[tuple[str, str], object] = {}
 # One lock per kernel: different kernels may build at the same time.
 _locks = {name: threading.Lock() for name in KERNELS}
 
@@ -94,17 +136,59 @@ def _compile(name: str) -> pathlib.Path:
         ) from exc
 
 
+def argtypes(kernel: str, symbol: str) -> list:
+    """The ctypes parameter types of ``symbol`` in :data:`PROTOTYPES`."""
+    return [_CTYPES[c] for c in PROTOTYPES[kernel][symbol]]
+
+
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of kernel ``name``, compiled on first use."""
+    """The loaded library of kernel ``name``, compiled on first use, its
+    functions bound to their :data:`PROTOTYPES`."""
     if name not in KERNELS:
         raise KeyError(f"unknown kernel {name!r}")
     with _locks[name]:
         if name not in _libs:
             try:
-                _libs[name] = ctypes.CDLL(str(_compile(name)))
+                lib = ctypes.CDLL(str(_compile(name)))
             except OSError as exc:
                 raise BuildError(f"cannot load kernel {name}: {exc}") from exc
+            for symbol in PROTOTYPES[name]:
+                try:
+                    fn = getattr(lib, symbol)
+                except AttributeError as exc:
+                    raise BuildError(f"kernel {name} has no {symbol}") from exc
+                fn.argtypes = argtypes(name, symbol)
+                fn.restype = ctypes.c_int
+                _bound[name, symbol] = fn
+            _libs[name] = lib
         return _libs[name]
+
+
+def bound(kernel: str, symbol: str):
+    """Function ``symbol`` of kernel ``kernel``'s library, bound to its
+    prototype when the library loaded (compiled on first use)."""
+    fn = _bound.get((kernel, symbol))
+    if fn is None:
+        load(kernel)
+        fn = _bound[kernel, symbol]
+    return fn
+
+
+_CURRENT = nullcontext()
+
+
+def on_device(dev: torch.device):
+    """A context that makes CUDA device ``dev`` current; it does nothing
+    when ``dev`` is current already."""
+    if dev.index == torch.cuda.current_device():
+        return _CURRENT
+    return torch.cuda.device(dev)
+
+
+def stream(dev: torch.device) -> int:
+    """The raw handle of CUDA device ``dev``'s current stream, as a launch
+    function takes it."""
+    return torch._C._cuda_getCurrentRawStream(dev.index)
 
 
 def library_path(name: str) -> pathlib.Path:

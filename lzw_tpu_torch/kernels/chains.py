@@ -111,11 +111,9 @@ def ctas_per_sm(name: str, device) -> int:
 
 def _query_ctas(name: str, index: int) -> int:
     warps, chain = LAYOUTS[name]
-    fn = getattr(build.load(name), f"{name}_occupancy")
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn = build.bound(name, f"{name}_occupancy")
     out = ctypes.c_int(0)
-    with torch.cuda.device(index):
+    with build.on_device(torch.device("cuda", index)):
         rc = fn(warps, warps * chain, ctypes.addressof(out))
     if rc != 0:
         raise RuntimeError(f"kernel {name}: occupancy query failed: CUDA "

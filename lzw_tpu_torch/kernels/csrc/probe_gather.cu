@@ -11,16 +11,25 @@
 // The TPU probes asked whether Mosaic could gather per lane at all; here
 // every thread indexes memory directly, at every height.
 //
-// What bounds it on the H100: a and b move a few KiB, so a launch takes the
-// card's launch latency; b2's 256 gathers of a lane are one chain of
-// dependent loads from a 4 MiB table (L2), so its time over 256 is the
-// latency of one dependent gather, the floor of every lookup chain in the
-// encode parse and pass 1.
+// What bounds it on the H100: a and b move a few KiB (b: 128 indices, 128
+// gathered values), microseconds below a launch, so a call costs what the
+// host spends to launch it: the Python wrapper's checks, its output's
+// allocation, the stream and device lookups and the ctypes call.  That
+// launch path is every kernel's of the port, which is why P4 times it.
+// b2's 256 gathers of a lane are one chain of dependent loads from a
+// 4 MiB table (L2), so its time over 256 is the latency of one dependent
+// gather, the floor of every lookup chain in the encode parse and pass 1.
 //
-// What the design does about it: one thread per element or lane; int32
-// arithmetic in uint32 so that it wraps as XLA's does; a gather index
-// outside [0, H) is clamped to keep the load in the table (the probes draw
-// indices inside it).
+// What the design does about it: the kernels stay one thread per element
+// or lane (int32 arithmetic in uint32 so that it wraps as XLA's does; a
+// gather index outside [0, H) is clamped to keep the load in the table);
+// the launch path is cut instead, for every kernel (kernels/build.py):
+// each C prototype is bound once when its library loads, not on every
+// call; the device is switched only when it is not current; the stream
+// is the raw handle, with no Stream object made; the launch is counted
+// under one short lock.  chip_smoke.py phase 8 times a call beside
+// torch.gather and x * 2 + 1, and 20 launches captured in one CUDA graph,
+// which leave the host out.
 
 #include <cstdint>
 #include <cuda_runtime.h>

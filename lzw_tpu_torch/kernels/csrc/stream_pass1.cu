@@ -13,8 +13,10 @@
 // append-only global tables gprefix / gsuffix / glocal through a local ->
 // global code map that stays stale across a CLEAR (the reference's tables
 // are not cleared on reset, decoder.rs:222-227), and records each word:
-// its global id out_g, length out_len, output offset out_off and whether it
-// is a first-code literal out_lit.  It stops on EOI, on the end of the
+// its global id out_g, length out_len, output offset out_off, whether it
+// is a first-code literal out_lit and the wire code read, out_code (a
+// literal after a CLEAR may read an entry never inserted, whose glocal
+// names no code).  It stops on EOI, on the end of the
 // bits, or on the first error, with the JAX function's kind and code.
 // Outputs arrive zeroed; the kernel writes the roots, the inserted entries
 // and the words it reaches.
@@ -183,9 +185,10 @@ __global__ void __launch_bounds__(kThreads, 1) stream_pass1_kernel(
     Spec sp, int32_t* __restrict__ gprefix, int32_t* __restrict__ gsuffix,
     int32_t* __restrict__ glocal, int32_t* __restrict__ out_g,
     int32_t* __restrict__ out_len, int32_t* __restrict__ out_off,
-    uint8_t* __restrict__ out_lit, int32_t* __restrict__ n_words,
-    int32_t* __restrict__ error, int32_t* __restrict__ error_code,
-    int32_t* __restrict__ max_len, int64_t* __restrict__ total_len) {
+    uint8_t* __restrict__ out_lit, int16_t* __restrict__ out_code,
+    int32_t* __restrict__ n_words, int32_t* __restrict__ error,
+    int32_t* __restrict__ error_code, int32_t* __restrict__ max_len,
+    int64_t* __restrict__ total_len) {
   extern __shared__ __align__(16) uint8_t smem[];
   __shared__ int64_t sums[kPer * kWarps];
   __shared__ int s_end;
@@ -334,6 +337,7 @@ __global__ void __launch_bounds__(kThreads, 1) stream_pass1_kernel(
         out_len[ws + k] = static_cast<int32_t>(len[i]);
         out_off[ws + k] = static_cast<int32_t>(off + before[i]);
         out_lit[ws + k] = k == 0;
+        out_code[ws + k] = static_cast<int16_t>(m.code[k]);
         longest = max(longest, static_cast<int>(len[i]));
         if (k >= 1) {  // step k inserts local ff + k - 1 as gbase + k - 1
           const int64_t e = t0 + gbase + k - 1;
@@ -431,6 +435,7 @@ __global__ void __launch_bounds__(kThreads, 1) stream_pass1_kernel(
           out_g[ws + j] = g[i];
           out_len[ws + j] = static_cast<int32_t>(len[i]);
           out_off[ws + j] = static_cast<int32_t>(off + before[i]);
+          out_code[ws + j] = static_cast<int16_t>(c[i]);
           longest = max(longest, static_cast<int>(len[i]));
         }
       }
@@ -460,17 +465,18 @@ __global__ void __launch_bounds__(kThreads, 1) stream_pass1_kernel(
 // the layout, setting the shared limit or launching (0 on success).  data
 // u8[N, M], n_valid i32[N]; epoch_bit i32[K + 1], the bit offset of each
 // step of an epoch (K steps at most); tables i32[N, G] (gprefix, gsuffix,
-// glocal, zeroed); words i32[N, S] (out_g, out_len, out_off, zeroed) and
-// u8[N, S] out_lit (zeroed); per row i32 n_words, error, error_code,
-// max_len and i64 total_len.
+// glocal, zeroed); words i32[N, S] (out_g, out_len, out_off, zeroed),
+// u8[N, S] out_lit and i16[N, S] out_code (zeroed); per row i32 n_words,
+// error, error_code, max_len and i64 total_len.
 extern "C" int stream_pass1_launch(
     const uint8_t* data, const int32_t* n_valid, const int32_t* epoch_bit,
     int K, int N, int M, int S, int G, int alphabet, int variable,
     int little, int clear_code, int end_code, int first_free, int threads,
     int shared_bytes, int32_t* gprefix, int32_t* gsuffix, int32_t* glocal,
     int32_t* out_g, int32_t* out_len, int32_t* out_off, uint8_t* out_lit,
-    int32_t* n_words, int32_t* error, int32_t* error_code, int32_t* max_len,
-    int64_t* total_len, void* stream) {
+    int16_t* out_code, int32_t* n_words, int32_t* error,
+    int32_t* error_code, int32_t* max_len, int64_t* total_len,
+    void* stream) {
   if (threads != kThreads || shared_bytes != kSharedBytes || K < 1 ||
       K >= kSteps || alphabet > kTable || first_free > kTable) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -484,7 +490,7 @@ extern "C" int stream_pass1_launch(
   stream_pass1_kernel<<<N, kThreads, kSharedBytes,
                         static_cast<cudaStream_t>(stream)>>>(
       data, n_valid, epoch_bit, K, M, S, G, sp, gprefix, gsuffix, glocal,
-      out_g, out_len, out_off, out_lit, n_words, error, error_code, max_len,
-      total_len);
+      out_g, out_len, out_off, out_lit, out_code, n_words, error, error_code,
+      max_len, total_len);
   return static_cast<int>(cudaGetLastError());
 }

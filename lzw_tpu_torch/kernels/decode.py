@@ -26,7 +26,6 @@ as the container returns them, so the host fetches one buffer.
 from __future__ import annotations
 
 import contextlib
-import ctypes
 from typing import NamedTuple
 
 import numpy as np
@@ -150,13 +149,8 @@ def decode_pass1(codes: torch.Tensor, n_codes: torch.Tensor,
     alphabet, first_free = _table_params(spec)
     N, S = codes.shape
     dev = codes.device
-    fn = build.load("decode_pass1").decode_pass1_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 5
-                   + [ctypes.c_void_p] * 5 + [ctypes.c_int]
-                   + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3
-                   + [ctypes.c_void_p])
-    with torch.cuda.device(dev):
+    fn = build.bound("decode_pass1", "decode_pass1_launch")
+    with build.on_device(dev):
         g = chains.launch_geometry("decode_pass1", N, dev)
         # The warps take the blocks longest first from a shared counter.
         order = torch.argsort(n_codes, descending=True, stable=True).to(
@@ -166,14 +160,14 @@ def decode_pass1(codes: torch.Tensor, n_codes: torch.Tensor,
         pair = (torch.empty((N, S), dtype=torch.int32, device=dev)
                 if row_kind else None)
         stats = torch.empty((3, N), dtype=torch.int32, device=dev)
-        stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(codes.data_ptr(), n_codes.data_ptr(), N, S, block_size,
                 alphabet, first_free,
                 None if sched is None else sched.data_ptr(),
                 order.data_ptr(), counter.data_ptr(), words.data_ptr(),
                 None if pair is None else pair.data_ptr(),
                 row_kind, stats[0].data_ptr(), stats[1].data_ptr(),
-                stats[2].data_ptr(), g.grid, g.warps, g.shared_bytes, stream)
+                stats[2].data_ptr(), g.grid, g.warps, g.shared_bytes,
+                build.stream(dev))
     build.check_launch("decode_pass1", rc)
     out = (words, stats[0], stats[1], stats[2])
     return out + (pair,) if row_kind else out
@@ -445,15 +439,11 @@ def word_ends(words: torch.Tensor, n_codes: torch.Tensor,
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     N, S = words.shape
-    fn = build.load("word_ends").word_ends_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 + [
-        ctypes.c_void_p] * 2
-    with torch.cuda.device(dev):
+    fn = build.bound("word_ends", "word_ends_launch")
+    with build.on_device(dev):
         ends = torch.empty((N, S), dtype=torch.int32, device=dev)
-        stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(words.data_ptr(), n_codes.data_ptr(), N, S, block_size,
-                ends.data_ptr(), stream)
+                ends.data_ptr(), build.stream(dev))
     build.check_launch("word_ends", rc)
     return ends
 
@@ -486,20 +476,16 @@ def _launch_walk(kernel: str, codes, pair, n_codes, sched, totals,
     ``totals`` is given, else padded [N, block_size] and zeroed)."""
     alphabet, first_free = _table_params(spec)
     N, S = codes.shape
-    fn = getattr(build.load(kernel), f"{kernel}_launch")
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
-                   + [ctypes.c_void_p] * 2)
+    fn = build.bound(kernel, f"{kernel}_launch")
 
     def ptr(t):
         return None if t is None else t.data_ptr()
 
-    with torch.cuda.device(codes.device):
-        stream = torch.cuda.current_stream(codes.device).cuda_stream
+    with build.on_device(codes.device):
         rc = fn(codes.data_ptr(), plan.ends.data_ptr(), pair.data_ptr(),
                 n_codes.data_ptr(), ptr(sched), ptr(totals), ptr(plan.base),
                 N, S, block_size, alphabet, first_free, out.data_ptr(),
-                stream)
+                build.stream(codes.device))
     build.check_launch(kernel, rc)
 
 
@@ -527,7 +513,7 @@ def _pass2(kernel: str, reference, codes, words, pair, n_codes, block_size,
     if codes.device.type != "cuda":
         raise ValueError(f"unsupported device {codes.device}")
     dev = codes.device
-    with torch.cuda.device(dev):
+    with build.on_device(dev):
         plan = _walk_plan(words, n_codes, totals, block_size)
         if totals is None:
             out = torch.zeros((codes.shape[0], block_size), dtype=torch.uint8,

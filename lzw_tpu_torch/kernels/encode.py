@@ -18,8 +18,6 @@ through a per-block cursor).
 
 from __future__ import annotations
 
-import ctypes
-
 import numpy as np
 import torch
 
@@ -77,12 +75,8 @@ def encode_blocks_codes(blocks: torch.Tensor, lens: torch.Tensor,
     first_free, max_code, reset = _spec_params(spec)
     N, B = blocks.shape
     dev = blocks.device
-    fn = build.load("encode_parse").encode_parse_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 5
-                   + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
-                   + [ctypes.c_void_p])
-    with torch.cuda.device(dev):
+    fn = build.bound("encode_parse", "encode_parse_launch")
+    with build.on_device(dev):
         g = chains.launch_geometry("encode_parse", N, dev)
         dense = torch.zeros((N, B + 1), dtype=torch.int32, device=dev)
         counts = torch.empty(N, dtype=torch.int32, device=dev)
@@ -91,12 +85,11 @@ def encode_blocks_codes(blocks: torch.Tensor, lens: torch.Tensor,
         # A null pointer launches the instance that writes no positions.
         pos = (torch.zeros((N, B + 1), dtype=torch.int32, device=dev)
                if positions else None)
-        stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(blocks.data_ptr(), lens.data_ptr(), N, B, first_free,
                 max_code, reset, dense.data_ptr(), counts.data_ptr(),
                 err.data_ptr(), err_code.data_ptr(),
                 None if pos is None else pos.data_ptr(), g.grid, g.warps,
-                g.shared_bytes, stream)
+                g.shared_bytes, build.stream(dev))
     build.check_launch("encode_parse", rc)
     if positions:
         return dense, counts, err, err_code, pos
@@ -129,12 +122,8 @@ def encode_stream_codes(blocks: torch.Tensor, lens: torch.Tensor,
     root_bits = spec.code_size if reset >= 0 else 8
     N, B = blocks.shape
     dev = blocks.device
-    fn = build.load("stream_encode").stream_encode_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p]
-                   + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 4
-                   + [ctypes.c_int] * 3 + [ctypes.c_void_p])
-    with torch.cuda.device(dev):
+    fn = build.bound("stream_encode", "stream_encode_launch")
+    with build.on_device(dev):
         stride = -(-B // 16) * 16
         if stride != B or blocks.data_ptr() % 16:
             padded = torch.empty((N, stride), dtype=torch.uint8, device=dev)
@@ -148,7 +137,7 @@ def encode_stream_codes(blocks: torch.Tensor, lens: torch.Tensor,
         rc = fn(blocks.data_ptr(), stride, lens.data_ptr(), N, B, root_bits,
                 first_free, reset, dense.data_ptr(),
                 counts.data_ptr(), err.data_ptr(), err_code.data_ptr(), N,
-                threads, shared, torch.cuda.current_stream(dev).cuda_stream)
+                threads, shared, build.stream(dev))
     build.check_launch("stream_encode", rc)
     return dense, counts, err, err_code
 

@@ -23,7 +23,6 @@ tensors, and raises for anything else.  Integer arithmetic wraps as int32.
 
 from __future__ import annotations
 
-import ctypes
 import math
 
 import torch
@@ -42,10 +41,6 @@ def _cuda_device(t: torch.Tensor) -> torch.device:
     if t.device.type != "cuda":
         raise ValueError(f"unsupported device {t.device}")
     return t.device
-
-
-def _stream(dev: torch.device) -> int:
-    return torch.cuda.current_stream(dev).cuda_stream
 
 
 def _check_scan(x: torch.Tensor, rows: int) -> int:
@@ -89,14 +84,11 @@ def probe_scan(x: torch.Tensor, *, rows: int = 1024,
     steps = x.shape[1]
     packed = x.dtype == torch.int16
     words = x.reshape(steps, cols).view(torch.int32)  # two int16 per word
-    fn = build.load("probe_scan").probe_scan_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4 + [
-        ctypes.c_uint32, ctypes.c_void_p]
-    with torch.cuda.device(dev):
+    fn = build.bound("probe_scan", "probe_scan_launch")
+    with build.on_device(dev):
         out = torch.empty(words.shape[1], dtype=torch.int32, device=dev)
         rc = fn(words.data_ptr(), out.data_ptr(), steps, words.shape[1],
-                rows, int(packed), word, _stream(dev))
+                rows, int(packed), word, build.stream(dev))
     build.check_launch("probe_scan", rc)
     return out.view(x.dtype).reshape(1, *x.shape[2:])
 
@@ -119,16 +111,15 @@ def probe_scan_reference(x: torch.Tensor, *, rows: int = 1024,
 
 def affine(x: torch.Tensor) -> torch.Tensor:
     """P4-a: ``x * 2 + 1`` of an int32 tensor."""
-    build.require_tensor(x, "x", torch.int32, x.dim(), x.device)
-    if x.device.type == "cpu":
+    dev = x.device
+    build.require_tensor(x, "x", torch.int32, x.dim(), dev)
+    if dev.type == "cpu":
         return affine_reference(x)
-    dev = _cuda_device(x)
-    fn = build.load("probe_gather").affine_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int, ctypes.c_void_p]
-    with torch.cuda.device(dev):
+    _cuda_device(x)
+    fn = build.bound("probe_gather", "affine_launch")
+    with build.on_device(dev):
         out = torch.empty_like(x)
-        rc = fn(x.data_ptr(), out.data_ptr(), x.numel(), _stream(dev))
+        rc = fn(x.data_ptr(), out.data_ptr(), x.numel(), build.stream(dev))
     build.check_launch("probe_gather", rc)
     return out
 
@@ -139,8 +130,9 @@ def affine_reference(x: torch.Tensor) -> torch.Tensor:
 
 
 def _check_gather(tab: torch.Tensor, idx: torch.Tensor) -> None:
-    build.require_tensor(tab, "tab", torch.int32, 2, tab.device)
-    build.require_tensor(idx, "idx", torch.int32, 2, tab.device)
+    dev = tab.device
+    build.require_tensor(tab, "tab", torch.int32, 2, dev)
+    build.require_tensor(idx, "idx", torch.int32, 2, dev)
     if idx.shape[1] != tab.shape[1]:
         raise ValueError(f"idx has {idx.shape[1]} lanes, tab {tab.shape[1]}")
     if tab.shape[0] == 0:
@@ -151,17 +143,16 @@ def gather_lanes(tab: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """P4-b: ``o[r, l] = tab[idx[r, l], l]`` for tab i32[H, L] and idx
     i32[R, L] with entries in [0, H) -> o i32[R, L]."""
     _check_gather(tab, idx)
-    if tab.device.type == "cpu":
+    dev = tab.device
+    if dev.type == "cpu":
         return gather_lanes_reference(tab, idx)
-    dev = _cuda_device(tab)
-    fn = build.load("probe_gather").gather_lanes_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [
-        ctypes.c_void_p]
-    with torch.cuda.device(dev):
+    _cuda_device(tab)
+    fn = build.bound("probe_gather", "gather_lanes_launch")
+    height, lanes = tab.shape
+    with build.on_device(dev):
         out = torch.empty_like(idx)
-        rc = fn(tab.data_ptr(), idx.data_ptr(), out.data_ptr(), tab.shape[0],
-                tab.shape[1], idx.numel(), _stream(dev))
+        rc = fn(tab.data_ptr(), idx.data_ptr(), out.data_ptr(), height,
+                lanes, idx.numel(), build.stream(dev))
     build.check_launch("probe_gather", rc)
     return out
 
@@ -192,14 +183,11 @@ def gather_loop(tab: torch.Tensor, idx: torch.Tensor,
     if tab.device.type == "cpu":
         return gather_loop_reference(tab, idx, steps)
     dev = _cuda_device(tab)
-    fn = build.load("probe_gather").gather_loop_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [
-        ctypes.c_void_p]
-    with torch.cuda.device(dev):
+    fn = build.bound("probe_gather", "gather_loop_launch")
+    with build.on_device(dev):
         out = torch.empty_like(idx)
         rc = fn(tab.data_ptr(), idx.data_ptr(), out.data_ptr(), tab.shape[0],
-                tab.shape[1], idx.numel(), steps, _stream(dev))
+                tab.shape[1], idx.numel(), steps, build.stream(dev))
     build.check_launch("probe_gather", rc)
     return out
 
@@ -239,17 +227,14 @@ def chain_steps(tab: torch.Tensor, start: int, mode: str, lanes: int,
     if tab.dtype != torch.int32 or tab.shape != (CHAIN_WORDS,) or \
             not tab.is_contiguous():
         raise ValueError(f"tab must be contiguous i32[{CHAIN_WORDS}]")
-    fn = build.load("chain_probe").chain_probe_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p, ctypes.c_uint] + [ctypes.c_int] * 3
-                   + [ctypes.c_void_p] * 4)
-    with torch.cuda.device(dev):
+    fn = build.bound("chain_probe", "chain_probe_launch")
+    with build.on_device(dev):
         cycles = torch.zeros(1, dtype=torch.int64, device=dev)
         out = torch.zeros(2, dtype=torch.int32, device=dev)
         sink = torch.zeros(1024, dtype=torch.int32, device=dev)
         rc = fn(tab.data_ptr(), start, CHAIN_MODES.index(mode), lanes, steps,
                 cycles.data_ptr(), out.data_ptr(), sink.data_ptr(),
-                _stream(dev))
+                build.stream(dev))
     build.check_launch("chain_probe", rc)
     return int(cycles.item()), int(out[0].item()) & 0xFFFFFFFF
 

@@ -13,10 +13,11 @@ codes: it reads each code at the bit cursor, keeps the dictionary as
 **append-only global tables** (every insert gets a fresh global id, and a
 local->global ``code_map`` translates wire codes of the current epoch; a
 CLEAR only rewinds the local index, so the tables are immutable once
-written), and records per word its global id, length, output offset and
-whether it is a first-code literal.  Within an epoch (CLEAR to CLEAR) the
-width of the k-th code depends on k alone (:func:`epoch_widths`), so the
-kernel reads and decodes a whole epoch at once, one CTA a row.
+written), and records per word its global id, length, output offset,
+whether it is a first-code literal and the wire code read.  Within an
+epoch (CLEAR to CLEAR) the width of the k-th code depends on k alone
+(:func:`epoch_widths`), so the kernel reads and decodes a whole epoch at
+once, one CTA a row.
 
 Pass 2 (:func:`decode_pass2`, kernel ``csrc/stream_pass2.cu``) walks every
 word's suffix chain from its global id and writes byte
@@ -46,7 +47,6 @@ before pass 2 reads offsets of a row that long.
 
 from __future__ import annotations
 
-import ctypes
 import functools
 from typing import NamedTuple
 
@@ -96,7 +96,7 @@ class StreamLayout(NamedTuple):
 STREAM_LAYOUTS = {
     # One CTA a row.  By local code: global id and length (i32), first
     # byte (u8); by step of an epoch (4096 at most): bit offset (i32, one
-    # more), link (u32) and code (u16).
+    # more), link (u32) and code (u16, also the source of out_code).
     "stream_pass1": StreamLayout(
         1024, MAX_TABLE_SIZE * (4 + 4 + 1) + 4 * (4096 + 1) + 4096 * (4 + 2)),
     # One CTA a chunk of PASS2_CHUNK word slots.  The 256 roots and an
@@ -183,6 +183,10 @@ def decode_pass1(data: torch.Tensor, n_valid: torch.Tensor, spec: LzwSpec):
     and ``out_lit`` bool[N, S] (S = ``pass1_step_bound(M)``), and per row
     ``n_words``, ``error``, ``error_code``, ``max_len`` i32[N] and
     ``total_len`` i64[N].  Entries past a row's inserts and words are 0.
+    Beside the JAX function's outputs, ``out_code`` i16[N, S]: each word's
+    wire code (0 where a slot holds no word).  ``glocal[out_g]`` is the
+    same code but for a first code after a CLEAR that reads an entry never
+    inserted (the UNINIT entry, G - 1, whose ``glocal`` is 0).
     """
     build.require_tensor(data, "data", torch.uint8, 2, data.device)
     build.require_tensor(n_valid, "n_valid", torch.int32, 1, data.device)
@@ -197,43 +201,43 @@ def decode_pass1(data: torch.Tensor, n_valid: torch.Tensor, spec: LzwSpec):
     N, M = data.shape
     S, G = _shapes(M, spec)
     dev = data.device
-    with torch.cuda.device(dev):
+    with build.on_device(dev):
         tables = torch.zeros((3, N, G), dtype=torch.int32, device=dev)
         words = torch.zeros((3, N, S), dtype=torch.int32, device=dev)
         lit = torch.zeros((N, S), dtype=torch.bool, device=dev)
+        code = torch.zeros((N, S), dtype=torch.int16, device=dev)
         rows = torch.empty((4, N), dtype=torch.int32, device=dev)
         total = torch.empty(N, dtype=torch.int64, device=dev)
-        _launch_pass1(data, n_valid, spec, tables, words, lit, rows, total)
-    return _pass1_dict(tables, words, lit, rows, total)
+        _launch_pass1(data, n_valid, spec, tables, words, lit, code, rows,
+                      total)
+    return _pass1_dict(tables, words, lit, code, rows, total)
 
 
-def _launch_pass1(data, n_valid, spec: LzwSpec, tables, words, lit, rows,
-                  total) -> None:
+def _launch_pass1(data, n_valid, spec: LzwSpec, tables, words, lit, code,
+                  rows, total) -> None:
     """Launch ``stream_pass1.cu`` into the outputs of :func:`decode_pass1`
     (zeroed by the caller; ``tables``, ``words`` and ``rows`` are sequences
     of its planes) and count it; raises when it does not launch."""
     N, M = data.shape
     G, S = tables[0].shape[1], words[0].shape[1]
-    fn = build.load("stream_pass1").stream_pass1_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 13
-                   + [ctypes.c_void_p] * 13)
+    fn = build.bound("stream_pass1", "stream_pass1_launch")
     bits = _epoch_bits_on(spec, data.device)
     rc = fn(data.data_ptr(), n_valid.data_ptr(), bits.data_ptr(),
             bits.shape[0] - 1, N, M, S, G, spec.alphabet_size,
             int(spec.variable), int(spec.endianness.value == "little"),
             spec.clear_code, spec.end_code, spec.first_free_code,
             *STREAM_LAYOUTS["stream_pass1"], *(t.data_ptr() for t in tables),
-            *(t.data_ptr() for t in words), lit.data_ptr(),
+            *(t.data_ptr() for t in words), lit.data_ptr(), code.data_ptr(),
             *(t.data_ptr() for t in rows), total.data_ptr(),
-            torch.cuda.current_stream(data.device).cuda_stream)
+            build.stream(data.device))
     build.check_launch("stream_pass1", rc)
 
 
-def _pass1_dict(tables, words, lit, rows, total) -> dict:
+def _pass1_dict(tables, words, lit, code, rows, total) -> dict:
     out = dict(zip(_TABLE_KEYS, tables))
     out.update(zip(_WORD_KEYS, words))
     out["out_lit"] = lit
+    out["out_code"] = code
     out.update(zip(_ROW_KEYS, rows))
     out["total_len"] = total
     return out
@@ -246,8 +250,9 @@ def _wrap_i32(v: int) -> int:
 def _pass1_row(row: bytes, n_valid: int, spec: LzwSpec, S: int, G: int):
     """Plain pass 1 of one row: the JAX ``while_loop`` body
     (lzw_tpu/ops/decode.py:136-252) as a Python loop over codes, on Python
-    lists.  Returns (tables, words, lit, (n_words, error, error_code,
-    max_len), total_len, the bit cursor after the last step)."""
+    lists.  Returns (tables, words, lit, the words' wire codes, (n_words,
+    error, error_code, max_len), total_len, the bit cursor after the last
+    step)."""
     alphabet = spec.alphabet_size
     variable = spec.variable
     little = spec.endianness.value == "little"
@@ -268,6 +273,7 @@ def _pass1_row(row: bytes, n_valid: int, spec: LzwSpec, S: int, G: int):
     out_len = [0] * S
     out_off = [0] * S
     out_lit = [False] * S
+    out_code = [0] * S
 
     cursor = 0
     read_size = spec.initial_width
@@ -340,6 +346,7 @@ def _pass1_row(row: bytes, n_valid: int, spec: LzwSpec, S: int, G: int):
         if emit:
             out_g[step] = word_g
             out_len[step] = word_len
+            out_code[step] = code
         out_off[step] = _wrap_i32(off)
         out_lit[step] = first
         if emit:
@@ -374,7 +381,7 @@ def _pass1_row(row: bytes, n_valid: int, spec: LzwSpec, S: int, G: int):
         if bad:
             err_code = code
     return ((gprefix, gsuffix, glocal), (out_g, out_len, out_off), out_lit,
-            (step, err, err_code, max(out_len)), off, cursor)
+            out_code, (step, err, err_code, max(out_len)), off, cursor)
 
 
 def decode_pass1_reference(data: torch.Tensor, n_valid: torch.Tensor,
@@ -385,21 +392,23 @@ def decode_pass1_reference(data: torch.Tensor, n_valid: torch.Tensor,
     tables = np.zeros((3, N, G), np.int32)
     words = np.zeros((3, N, S), np.int32)
     lit = np.zeros((N, S), bool)
+    code = np.zeros((N, S), np.int16)
     rows = np.zeros((4, N), np.int32)
     total = np.zeros(N, np.int64)
     data_np = data.cpu().numpy()
     n_np = n_valid.cpu().numpy()
     for i in range(N):
-        t, w, lt, r, tot, _ = _pass1_row(data_np[i].tobytes(),
-                                         int(n_np[i]), spec, S, G)
+        t, w, lt, c, r, tot, _ = _pass1_row(data_np[i].tobytes(),
+                                            int(n_np[i]), spec, S, G)
         tables[:, i] = t
         words[:, i] = w
         lit[i] = lt
+        code[i] = c
         rows[:, i] = r
         total[i] = tot
     dev = data.device
     return _pass1_dict(*(torch.from_numpy(a).to(dev)
-                         for a in (tables, words, lit, rows, total)))
+                         for a in (tables, words, lit, code, rows, total)))
 
 
 def check_offsets(total_len: torch.Tensor) -> None:
@@ -455,7 +464,7 @@ def decode_pass2(gprefix, gsuffix, glocal, out_g, out_len, out_off, out_lit,
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     N = gprefix.shape[0]
-    with torch.cuda.device(dev):
+    with build.on_device(dev):
         out = torch.zeros((N, out_bound), dtype=torch.uint8, device=dev)
         # (word << 32 | code) of the earliest corrupt chain, all ones if none.
         first_bad = torch.full((N,), -1, dtype=torch.int64, device=dev)
@@ -473,14 +482,11 @@ def _launch_pass2(tables, words, out_lit, alphabet: int, out,
     when it does not launch."""
     (N, G), S = tables[0].shape, words[0].shape[1]
     threads, shared = STREAM_LAYOUTS["stream_pass2"]
-    fn = build.load("stream_pass2").stream_pass2_launch
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
-                   + [ctypes.c_void_p] * 3)
+    fn = build.bound("stream_pass2", "stream_pass2_launch")
     rc = fn(*(t.data_ptr() for t in tables), *(t.data_ptr() for t in words),
             out_lit.data_ptr(), N, G, S, out.shape[1], alphabet, threads,
             pass2_grid(N, S), shared, out.data_ptr(), first_bad.data_ptr(),
-            torch.cuda.current_stream(out.device).cuda_stream)
+            build.stream(out.device))
     build.check_launch("stream_pass2", rc)
 
 
@@ -555,13 +561,12 @@ def decode_block(data: torch.Tensor, n_valid: torch.Tensor, spec: LzwSpec,
     error = torch.where(chain_first, ERR_UNEXPECTED_CODE, p1["error"])
     error_code = torch.where(chain_first, err_code2, p1["error_code"])
     if overflow_error and bool((p1["total_len"] > out_bound).any()):
-        # The first word ending past the bound; a code reaches its word's
-        # entry, so the entry's wire code is the code read (glocal).
+        # The first word ending past the bound, named by the code read.
         ends = p1["out_off"].long() + p1["out_len"]
         over = (p1["out_len"] > 0) & (ends > out_bound)
         step = torch.where(over.any(1), over.int().argmax(1), NO_ERROR_STEP)
         word = step.clamp(max=over.shape[1] - 1).long()[:, None]
-        code = p1["glocal"].gather(1, p1["out_g"].gather(1, word).long())
+        code = p1["out_code"].gather(1, word).to(torch.int32)
         wins = step < torch.minimum(err_word_step, p1_step)
         error = torch.where(wins, ERR_UNEXPECTED_CODE, error)
         error_code = torch.where(wins, code[:, 0], error_code)

@@ -28,6 +28,7 @@ __all__ = ["spliced_nonstrict_stream", "EncodeCase", "Pass1Case",
            "check_edge_cases", "same_slots",
            "StreamCase", "stream_edge_cases",
            "stream_edge_rows", "check_stream_edge_cases",
+           "uninit_literal_stream",
            "StreamEncodeCase", "epoch_misses", "stream_encode_edge_cases",
            "stream_encode_rows", "check_stream_encode_edge_cases"]
 
@@ -533,6 +534,43 @@ def stream_edge_rows(spec: LzwSpec, seed: int = 0):
         mat[i, : len(c.stream)] = np.frombuffer(c.stream, np.uint8)
     return ([c.label for c in cases], mat,
             np.array([c.n_valid for c in cases], np.int32))
+
+
+def uninit_literal_stream(spec: LzwSpec, n_out: int,
+                          root: int = 1) -> tuple[bytes, int]:
+    """A variable-flavor stream whose words decode to ``n_out`` bytes, then
+    a CLEAR and a first code naming an entry that no epoch inserted, then
+    EOI: (the stream, that code).
+
+    Each epoch is ``root`` and words of it that grow by one byte a step
+    (step k reads entry first_free + k - 2 + its length, KwKwK at full
+    length), at most ``run`` inserts, so no entry from first_free + run on
+    is ever inserted; the last code is the largest the initial width
+    holds, and every code is read at that width.  The reference decodes it
+    to ``n_out`` bytes of ``root`` and one stale byte; bounded at ``n_out``
+    bytes, that one-byte literal passes the bound and the reference raises
+    UnexpectedCodeError with the code.  The single-stream pass 1 maps the
+    code to its UNINIT entry, whose ``glocal`` is 0."""
+    if not spec.variable:
+        raise ValueError("a fixed-12 stream has no CLEAR")
+    ff, width = spec.first_free_code, spec.initial_width
+    top = (1 << width) - 1
+    run = min(100, top - spec.strategy.increment - ff)
+    if run < 1 or not 0 <= root < spec.alphabet_size:
+        raise ValueError(f"{spec}: no room for an uninserted code")
+    symbols = []
+    left = n_out
+    while left:
+        symbols += [spec.clear_code, root]
+        left -= 1
+        k = 1
+        while left and k <= run:
+            length = min(k + 1, left)
+            symbols.append(root if length == 1 else ff + length - 2)
+            left -= length
+            k += 1
+    symbols += [spec.clear_code, top, spec.end_code]
+    return _stream_of(symbols, spec)[0], top
 
 
 def check_stream_edge_cases(device, specs) -> int:

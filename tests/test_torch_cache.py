@@ -59,6 +59,7 @@ def fake(monkeypatch, tmp_path):
     monkeypatch.setattr(build, "CSRC", csrc)
     monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "build")
     monkeypatch.setattr(build, "_libs", {})
+    monkeypatch.setattr(build, "_bound", {})
     cache.compiler_version.cache_clear()
     cache.cpu_identity.cache_clear()
     yield compiler
@@ -137,15 +138,44 @@ def real_library():
     return runtime.build()
 
 
-def test_matching_key_is_loaded_without_a_compile(real_library, fake):
+@pytest.fixture(scope="module")
+def stand_in_library(tmp_path_factory):
+    """A library that loads and exports ``encode_parse.cu``'s functions
+    (each returns 0), built by the host's C++ compiler: a stand-in for
+    the kernel's library, whose prototypes ``build.load`` binds."""
+    out = tmp_path_factory.mktemp("stand_in")
+    src = out / "stand_in.cpp"
+    src.write_text("".join(
+        f'extern "C" int {symbol}() {{ return 0; }}\n'
+        for symbol in build.PROTOTYPES["encode_parse"]))
+    lib = out / "libstand_in.so"
+    subprocess.run([os.environ.get("CXX", "g++"), "-shared", "-fPIC", "-o",
+                    str(lib), str(src)], check=True, capture_output=True)
+    return lib
+
+
+def test_matching_key_is_loaded_without_a_compile(stand_in_library, fake):
     key = _kernel_key("encode_parse")
     lib = build.BUILD_DIR / f"libencode_parse-{key}.so"
     build.BUILD_DIR.mkdir()
-    shutil.copy(real_library, lib)
+    shutil.copy(stand_in_library, lib)
     fake.forbid = True
     assert build._compile("encode_parse") == lib
     assert build.load("encode_parse") is build.load("encode_parse")
     assert fake.compiles == []
+
+
+def test_a_library_without_a_prototype_is_refused(real_library, fake):
+    # The native runtime's library loads but exports none of the kernel's
+    # functions: load raises instead of handing out unbound ones.
+    key = _kernel_key("encode_parse")
+    build.BUILD_DIR.mkdir()
+    shutil.copy(real_library, build.BUILD_DIR / f"libencode_parse-{key}.so")
+    fake.forbid = True
+    with pytest.raises(build.BuildError, match="has no encode_parse_launch"):
+        build.load("encode_parse")
+    with pytest.raises(build.BuildError):
+        build.bound("encode_parse", "encode_parse_launch")
 
 
 def test_newer_library_with_other_flags_is_rebuilt(fake, monkeypatch):

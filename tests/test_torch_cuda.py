@@ -309,37 +309,44 @@ def test_first_byte_past_the_alphabet_on_card(cuda):
         BlockParallelCodec(spec, block, device=cuda, verify=True).encode(data)
 
 
-@pytest.mark.parametrize("kind", ["strict", "foreign", "big"])
+@pytest.mark.parametrize("kind", ["strict", "foreign", "big", "uninit"])
 def test_block_past_block_size_on_card(kind, cuda):
     """A block holding a stream longer than the block raises the plain
     route's UnexpectedCodeError code on every ``pass2`` route: a strict
     stream (pass 1 names the code), a foreign early-CLEAR one (the native
     ``decode_blocks`` on "auto" and "host", then the non-strict device
     route) and one past ``MAX_BLOCK`` (``decode_blocks``, then the
-    single-stream decoder)."""
+    single-stream decoder), also when the word that passes it is a first
+    code after a CLEAR naming an entry never inserted (the wire code)."""
     from lzw_tpu_torch import UnexpectedCodeError
     from lzw_tpu_torch.kernels.decode import MAX_BLOCK
     from lzw_tpu_torch.native.runtime import get_runtime
     from lzw_tpu_torch.parallel import framing
-    from lzw_tpu_torch.utils.testdata import spliced_nonstrict_stream
+    from lzw_tpu_torch.utils.testdata import (
+        spliced_nonstrict_stream, uninit_literal_stream,
+    )
 
     spec = LzwSpec.gif(7)
-    block = 2 * MAX_BLOCK if kind == "big" else 8192
-    n = 3 if kind == "big" else 8
+    block = 2 * MAX_BLOCK if kind in ("big", "uninit") else 8192
+    n = 3 if kind in ("big", "uninit") else 8
     mat, _ = _blocks(spec, n + 1, block, seed=17)
     data = mat[:n].tobytes()
     payloads = [bytes(p) for p in framing.parse_frame(BlockParallelCodec(
         spec, block, device=cuda).encode(data))[1]]
     longer = mat[n].tobytes() + mat[0, :700].tobytes()
+    wire = None
     if kind == "foreign":
         payloads[1] = spliced_nonstrict_stream(longer, spec, 1000,
                                                device=cuda)
+    elif kind == "uninit":
+        payloads[1], wire = uninit_literal_stream(spec, block)
     else:
         payloads[1] = get_runtime().encode(longer, spec, fix_eoi=True)
     frame = framing.pack_frame(spec, block, len(data), payloads)
     with pytest.raises(UnexpectedCodeError) as plain:
         BlockParallelCodec(spec, block, device="cpu", pass2="device").decode(
             frame)
+    assert wire is None or plain.value.code == wire
     for route in ("auto", "host", "device"):
         with pytest.raises(UnexpectedCodeError) as info:
             BlockParallelCodec(spec, block, device=cuda, pass2=route).decode(

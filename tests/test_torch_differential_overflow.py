@@ -41,7 +41,9 @@ from lzw_tpu_torch.kernels.decode import MAX_BLOCK
 from lzw_tpu_torch.native.runtime import get_runtime
 from lzw_tpu_torch.ops import reference as oracle
 from lzw_tpu_torch.parallel import framing
-from lzw_tpu_torch.utils.testdata import spliced_nonstrict_stream
+from lzw_tpu_torch.utils.testdata import (
+    spliced_nonstrict_stream, uninit_literal_stream,
+)
 from torch_differential import (
     BLOCKS, ROUTES, SPECS, VARIABLE, pallas_pass1, routes, runs_data,
 )
@@ -151,6 +153,28 @@ def test_big_block_past_block_size(name):
     code = _xla_passing_code(jspec, stream, block_size)
     bounded = oracle.block_error([stream], spec, block_size)
     assert isinstance(bounded, UnexpectedCodeError) and bounded.code == code
+    assert routes(spec, block_size, frame) == {
+        r: ("UnexpectedCodeError", code) for r in ROUTES}
+
+
+@pytest.mark.parametrize("name", ["gif7", "tiff"])
+def test_big_block_uninit_literal_past_block_size(name):
+    """A block of ``2 * MAX_BLOCK`` whose stream fills the block exactly,
+    then holds a CLEAR and a first code naming an entry never inserted:
+    that one-byte literal passes ``block_size``.  Every route raises
+    ``UnexpectedCodeError`` with the code read, the bounded oracle's.  The
+    single-stream pass 1, the JAX package's as the port's, maps that code
+    to its UNINIT entry, whose ``glocal`` names 0: the port names the code
+    from pass 1's ``out_code``."""
+    jspec = JSpec.gif(7) if name == "gif7" else SPECS[name]
+    spec = from_reference_spec(jspec)
+    block_size = 2 * MAX_BLOCK
+    stream, code = uninit_literal_stream(spec, block_size)
+    frame = framing.pack_frame(spec, block_size, block_size, [stream])
+    bounded = oracle.block_error([stream], spec, block_size)
+    assert isinstance(bounded, UnexpectedCodeError) and bounded.code == code
+    assert code == (1 << spec.initial_width) - 1
+    assert _xla_passing_code(jspec, stream, block_size) == 0
     assert routes(spec, block_size, frame) == {
         r: ("UnexpectedCodeError", code) for r in ROUTES}
 

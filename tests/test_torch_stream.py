@@ -37,6 +37,7 @@ from lzw_tpu_torch.ops import bitpack, decode, encode
 from lzw_tpu_torch.ops import reference as oracle
 from lzw_tpu_torch.parallel import framing
 from lzw_tpu_torch.spec import MAX_TABLE_SIZE, MAX_WIDTH
+from lzw_tpu_torch.utils.testdata import uninit_literal_stream
 
 SPECS = {
     "gif2": JSpec.gif(2),
@@ -129,6 +130,54 @@ def test_pass1_matches_jax(name):
         got = decode.decode_pass1(*_rows([buf], [len(stream)]), port_spec)
         _assert_pass1_equal(want, got, 0)
         assert got["total_len"].dtype == torch.int64, label
+
+
+def _wire_codes(stream, jspec):
+    """The codes the JAX reference decoder reads from a clean stream, in
+    order, without its CLEARs and EOI: one a word."""
+    if not jspec.variable:
+        return joracle.unpack_codes_fixed(stream, MAX_WIDTH, jspec.endianness)
+    read = []
+    cursor = joracle._BitCursor.read
+
+    def recording(self, width):
+        read.append(cursor(self, width))
+        return read[-1]
+
+    joracle._BitCursor.read = recording
+    try:
+        joracle.decode_bytes(stream, jspec)
+    finally:
+        joracle._BitCursor.read = cursor
+    return [c for c in read if c not in (jspec.clear_code, jspec.end_code)]
+
+
+@pytest.mark.parametrize("name", list(SPECS))
+def test_pass1_out_code_is_the_wire_code(name):
+    # out_code, which the JAX pass 1 lacks, against the reference decoder's
+    # reads: each word's code, 0 at the slots without a word; a literal
+    # after a CLEAR that reads an entry never inserted keeps its code
+    # where glocal[out_g] names 0.
+    spec = SPECS[name]
+    port_spec = from_reference_spec(spec)
+    cases = [(label, s) for label, s in _streams(name)
+             if label != "truncated"]
+    if spec.variable:
+        cases.append(("uninit", uninit_literal_stream(port_spec, 3000)[0]))
+    for label, stream in cases:
+        M = _bucket(len(stream) + 1)
+        buf = np.zeros(M, np.uint8)
+        buf[: len(stream)] = np.frombuffer(stream, np.uint8)
+        got = decode.decode_pass1(*_rows([buf], [len(stream)]), port_spec)
+        assert got["out_code"].dtype == torch.int16, label
+        words = got["out_len"][0] > 0
+        codes = got["out_code"][0]
+        assert codes[words].tolist() == _wire_codes(stream, spec), label
+        assert not codes[~words].any(), label
+        if label == "uninit":
+            literal = torch.nonzero(words)[-1, 0]
+            assert codes[literal] == (1 << port_spec.initial_width) - 1
+            assert got["glocal"][0][got["out_g"][0][literal]] == 0
 
 
 @pytest.mark.parametrize("name", ["gif7", "tiff", "fixed_be"])

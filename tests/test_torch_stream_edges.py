@@ -192,8 +192,8 @@ def test_epoch_widths_reach_the_plain_cursor(name):
     widths, bits = decode.epoch_widths(spec)
     for stream in _real_streams(spec):
         S, G = decode._shapes(len(stream), spec)
-        _, (_, out_len, _), _, (n, err, _, _), _, cursor = decode._pass1_row(
-            stream, len(stream), spec, S, G)
+        _, (_, out_len, _), _, _, (n, err, _, _), _, cursor = (
+            decode._pass1_row(stream, len(stream), spec, S, G))
         assert err == 0
         if spec.variable:
             # Words have a length; the CLEARs and the EOI end the epochs.
