@@ -58,7 +58,10 @@ Phases, one line each, any failure exits non-zero:
    ``probe_gpu all`` at the JAX scripts' shapes, counted to launch each
    of the four probe kernels, every gather OK and the sweep's time
    following T; then each probe kernel against its plain version on the
-   same inputs in every variant, exact; P1's times beside its chain floor;
+   same inputs in every variant, exact (P2 also on inputs that hit its
+   ring, in cells of 256 and 1024, with rings of 4 and 4095, near 2**23
+   and on 1000 lanes: ``scripts.ablate2.ring_cases``); P1's and P2's
+   times beside their chain floor;
    P4-a and P4-b beside the yardstick library calls, in turns, and each
    launch alone (20 in one CUDA graph);
 9. the row split: ``BlockParallelCodec`` over every visible GPU (and, on a
@@ -966,8 +969,9 @@ def run_probes(device):
     scripts' shapes, counted to launch each probe kernel; every gather must
     be right and the sweep's time must follow its step count.  Then each
     probe kernel against its plain version on the same inputs, every
-    variant (P1 on the script's x and on x + 4); P1's times beside its
-    chain floor (B steps of one dependent shared load, timed here by
+    variant (P1 on the script's x and on x + 4, P2 on
+    ``ablate2.ring_cases``); P1's and P2's times beside their chain floor
+    (4096 steps of one dependent shared load, timed here by
     ``chain_probe``); P4-a and P4-b beside the library calls that compute
     them, in turns (kernel, library, library, kernel), and each launch
     alone: 20 launches captured in one CUDA graph and replayed, so the
@@ -1023,19 +1027,27 @@ def run_probes(device):
                 res["ablate_parse"] = result(
                     errs[f"P1 {v}"], p1[v][0], plain_ms, 8 * x.numel(),
                     8 * x.numel())
-    x = ablate2.make_input(device)
-    for v in ablate2.VARIANTS:
-        got = ablate.ablate_ring(x, v)
-        plain_ms, ref = once_ms(lambda: ablate.ablate_ring_reference(x, v))
-        errs[f"P2 {v}"] = max_abs_err((got,), (ref,))
-        if v == "ring":
-            # On these inputs a key sits in at most one ring row at a time
-            # (it is written only after a miss), so the function needs one
-            # lookup per lane and step, as P1's table; the kernel's scan of
-            # all 512 rows is the TPU's design, not the function's work.
-            res["ablate_ring"] = result(
-                errs["P2 ring"], p2[v][0], plain_ms, 8 * x.numel(),
-                8 * x.numel())
+    # P2 on the script's x ("random") and on inputs that hit the ring, at
+    # other cells and rings, near 2**23 and on lanes no multiple of 8; each
+    # case's ring variant timed too.
+    ring_ms = {}
+    cases = ablate2.ring_cases(ablate2.STEPS, 8 * 128, 1000)
+    for case, (x, cell, ring) in cases.items():
+        x = torch.from_numpy(x).to(device)
+        for v in ablate2.VARIANTS:
+            got = ablate.ablate_ring(x, v, cell=cell, ring=ring)
+            plain_ms, ref = once_ms(lambda: ablate.ablate_ring_reference(
+                x, v, cell=cell, ring=ring))
+            errs[f"P2 {v} {case}"] = max_abs_err((got,), (ref,))
+            if v == "ring" and case == "random":
+                # A key sits in at most one ring row at a time (it is
+                # written only after a miss), so the function needs one
+                # lookup per lane and step: its bound is its bytes.
+                res["ablate_ring"] = result(
+                    errs[f"P2 ring {case}"], p2[v][0], plain_ms,
+                    8 * x.numel(), 8 * x.numel())
+        ring_ms[case] = cuda_ms(lambda: ablate.ablate_ring(
+            x, "ring", cell=cell, ring=ring), 3)
     for t in (512, 256):
         for dt in (torch.int32, torch.int16):
             x = probe_i16.make_input(dt, device, t)
@@ -1109,8 +1121,15 @@ def run_probes(device):
         + f"; chain floor {floor_ms:.4f} ms ({ablate_kernel.STEPS} steps x "
         f"{load_ns:.2f} ns a dependent shared load); bytes bound "
         f"{res['ablate_parse'].bound_ms:.5f} ms"
-        + "; P2 ablate_ring ms (4096 steps x 1024 lanes, cell 512): "
-        + ", ".join(f"{v} {ms:.4f}" for v, (ms, _) in p2.items()))
+        + "; P2 ablate_ring ms (4096 steps x 1024 lanes, cell 512) [ns a "
+        "step]: " + ", ".join(
+            f"{v} {ms:.4f} [{ms * 1e6 / ablate2.STEPS:.1f}]"
+            for v, (ms, _) in p2.items())
+        + f"; the same chain floor {ablate2.STEPS * load_ns / 1e6:.4f} ms; "
+        f"bytes bound {res['ablate_ring'].bound_ms:.5f} ms; ring by case "
+        "(cell, ring): " + ", ".join(
+            f"{case} ({cases[case][1]}, {cases[case][2]}) {ms:.4f}"
+            for case, ms in ring_ms.items()))
     say("probes", "P3 probe_scan best ms: " + ", ".join(
         f"{dt} T={t} {ms:.4f}" for t, by in p3.items()
         for dt, ms in by.items())

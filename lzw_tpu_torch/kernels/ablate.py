@@ -36,13 +36,14 @@ P2 variants (``x`` i32[steps, *lanes], every lane on its own):
   ``j`` is the step's index within its cell of ``cell`` steps; ``matched``
   is the larger of the table's and the ring's largest matching row.
 
-The kernels keep each lane's dictionary as an open-addressed hash of key
--> row where the TPU compare-scanned a table of rows: ``csrc/ablate_parse.cu``
-in shared memory (8 lanes a CTA, a lockstep group one thread block
-cluster, :data:`PARSE_LAYOUT`), ``csrc/ablate_ring.cu`` in device memory
-(``csrc/lane_hash.cuh``).  So they are exact for inputs in ``[0, 2**23)``,
-where no key is the empty row's -1; the plain versions are the TPU
-kernels' literal arithmetic and hold for every int32 input.
+The kernels keep each lane's dictionary in shared memory as an
+open-addressed index of key -> row where the TPU compare-scanned a table of
+rows: ``csrc/ablate_parse.cu`` (8 lanes a CTA, a lockstep group one thread
+block cluster, :data:`PARSE_LAYOUT`) and ``csrc/ablate_ring.cu`` (up to 8
+lanes a CTA, each lane's ring beside an index of its rows that a lookup
+walks once a step, :data:`RING_LAYOUT`).  So they are exact for inputs in
+``[0, 2**23)``, where no key is the empty row's -1; the plain versions are
+the TPU kernels' literal arithmetic and hold for every int32 input.
 """
 
 from __future__ import annotations
@@ -54,15 +55,13 @@ import torch
 
 from lzw_tpu_torch.kernels import build
 
-__all__ = ["PARSE_LAYOUT", "PARSE_VARIANTS", "RING_VARIANTS", "ParseLayout",
-           "ablate_parse", "ablate_parse_reference", "ablate_ring",
-           "ablate_ring_reference", "parse_grid"]
+__all__ = ["PARSE_LAYOUT", "PARSE_VARIANTS", "RING_LAYOUT", "RING_VARIANTS",
+           "ParseLayout", "RingLayout", "ablate_parse",
+           "ablate_parse_reference", "ablate_ring", "ablate_ring_reference",
+           "parse_grid"]
 
 FIRST_CODE = 256
 TABLE_FULL = 4096  # no insert once nxt reaches this
-_HASH_SLOTS = 8192  # per lane of P2 (matches csrc/lane_hash.cuh)
-_RING_PARTS = 4  # threads per lane in csrc/ablate_ring.cu
-_RING_LANES_PER_CTA = 8
 
 # Variant name -> the kernels' template argument.
 _EMPTY, _NOINSERT, _SCAN, _WININSERT, _SEG2 = range(5)
@@ -94,6 +93,32 @@ class ParseLayout(NamedTuple):
 PARSE_LAYOUT = ParseLayout(
     8, 256, 16, 8 * (2 * 6144 + 4 * 3840 + 4 * 3 * 64) + 4 * 2 * 8
     + 4 * 2 * 16 + 8 * 2)
+
+
+class RingLayout(NamedTuple):
+    """``ablate_ring.cu``'s CTA (its kMaxLanesPerCta, kChunk, kLaneBytes,
+    kMaxRing and kMaxSharedBytes).  A lane takes ``lane_bytes`` and 6 bytes
+    a ring row; a CTA as many lanes as fit, at most ``max_lanes_per_cta``,
+    one warp each.  The launch function refuses another layout."""
+
+    max_lanes_per_cta: int
+    chunk: int  # steps of x and out staged at once
+    lane_bytes: int  # a lane's shared bytes besides its ring rows
+    max_ring: int  # the index's 12-bit row field holds row + 1
+    max_shared_bytes: int  # a CTA's on the H100
+
+    def lanes_per_cta(self, ring: int) -> int:
+        return min(self.max_lanes_per_cta,
+                   self.max_shared_bytes // (self.lane_bytes + 6 * ring))
+
+    def shared_bytes(self, ring: int) -> int:
+        return self.lanes_per_cta(ring) * (self.lane_bytes + 6 * ring)
+
+
+# A lane: two indexes of 6144 u16 slots (the never-written table's and the
+# ring's), 64 steps of x (two buffers) and of out (i32) and the ring's row
+# -1 (i32); then a key (i32) and a slot (u16) for each ring row.
+RING_LAYOUT = RingLayout(8, 64, 2 * 2 * 6144 + 4 * 3 * 64 + 4, 4095, 232448)
 
 
 def parse_grid(groups: int, lanes: int, variant: str) -> tuple[int, int,
@@ -216,9 +241,9 @@ def _check_ring(x: torch.Tensor, cell: int, ring: int,
     if cell <= 0 or x.shape[0] % cell:
         raise ValueError(f"steps ({x.shape[0]}) must be a multiple of cell "
                          f"({cell})")
-    if ring <= 0 or ring % _RING_PARTS:
-        raise ValueError(f"ring must be a positive multiple of {_RING_PARTS}, "
-                         f"was {ring}")
+    if not 0 < ring <= RING_LAYOUT.max_ring:
+        raise ValueError(f"ring must be in [1, {RING_LAYOUT.max_ring}], was "
+                         f"{ring}")
     if table_rows <= 0:
         raise ValueError(f"table_rows must be positive, was {table_rows}")
 
@@ -229,8 +254,9 @@ def ablate_ring(x: torch.Tensor, variant: str, *, cell: int = 512,
     with a ring of recent keys -> out i32 of the same shape.
 
     CPU tensors run :func:`ablate_ring_reference`; CUDA tensors run the
-    kernel (exact for inputs in ``[0, 2**23)``; lanes a multiple of 8),
-    anything else raises.
+    kernel (exact for inputs in ``[0, 2**23)``), anything else raises.  On
+    both, ``ring`` must lie in ``[1, RING_LAYOUT.max_ring]`` (4095: the
+    kernel's index names a row in 12 bits) or it raises ValueError.
     """
     kind = _variant(RING_VARIANTS, variant)
     _check_ring(x, cell, ring, table_rows)
@@ -240,16 +266,12 @@ def ablate_ring(x: torch.Tensor, variant: str, *, cell: int = 512,
     dev = _cuda_device(x)
     steps = x.shape[0]
     lanes = x[0].numel()
-    if lanes % _RING_LANES_PER_CTA:
-        raise ValueError(f"lanes ({lanes}) must be a multiple of "
-                         f"{_RING_LANES_PER_CTA}")
     fn = build.bound("ablate_ring", "ablate_ring_launch")
     with build.on_device(dev):
-        tables = torch.empty((lanes, _HASH_SLOTS), dtype=torch.int64,
-                             device=dev)
         out = torch.empty_like(x)
         rc = fn(x.data_ptr(), out.data_ptr(), steps, lanes, cell, ring, kind,
-                tables.data_ptr(), build.stream(dev))
+                RING_LAYOUT.lanes_per_cta(ring),
+                RING_LAYOUT.shared_bytes(ring), build.stream(dev))
     build.check_launch("ablate_ring", rc)
     return out
 

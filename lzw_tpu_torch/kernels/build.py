@@ -81,7 +81,7 @@ PROTOTYPES = {
     "stream_pass1": {"stream_pass1_launch": "PPP" + "I" * 13 + "P" * 14},
     "stream_pass2": {"stream_pass2_launch": "PPPPPPPIIIIIIIIPPP"},
     "ablate_parse": {"ablate_parse_launch": "PPIIIIIIIP"},
-    "ablate_ring": {"ablate_ring_launch": "PPIIIIIPP"},
+    "ablate_ring": {"ablate_ring_launch": "PPIIIIIIIP"},
     "probe_scan": {"probe_scan_launch": "PPIIIIUP"},
     "probe_gather": {"affine_launch": "PPIP",
                      "gather_lanes_launch": "PPPIIIP",

@@ -13,8 +13,8 @@
 // scan_wininsert and seg2 add a minimum across the group's lanes a step.
 //
 // The first design (one thread a lane, 2 CTAs of 128 lanes on 2 of the
-// 132 SMs, each lane's 64 KiB hash in device memory, lane_hash.cuh) took
-// ~1.1 us a step: an L2 round trip a probe and a CTA barrier a step.
+// 132 SMs, each lane's 64 KiB hash in device memory) took ~1.1 us a step:
+// an L2 round trip a probe and a CTA barrier a step.
 // This one:
 //  * A lane's dictionary lives in shared memory, 27 KiB: kSlots u16 slots
 //    (a 4-bit tag of the key's hash << 12 | row - 255, 0 empty), linear

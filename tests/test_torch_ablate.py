@@ -24,6 +24,7 @@ from jax.experimental.pallas import tpu as pltpu
 from lzw_tpu_torch.kernels import ablate
 from lzw_tpu_torch.scripts import ablate2 as port_ablate2
 from lzw_tpu_torch.scripts import ablate_kernel as port_ablate_kernel
+from test_torch_bind import _constants
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 
@@ -207,5 +208,87 @@ def test_ring_variants_and_checks():
         ablate.ablate_ring(x, "ring2")
     with pytest.raises(ValueError, match="multiple of cell"):
         ablate.ablate_ring(x, "ring", cell=300)
-    with pytest.raises(ValueError, match="ring"):
-        ablate.ablate_ring(x, "ring", ring=6)
+    # The ring's index names a row in 12 bits: ring in [1, 4095], on
+    # every device.
+    for ring in (0, ablate.RING_LAYOUT.max_ring + 1):
+        with pytest.raises(ValueError, match="ring must be in"):
+            ablate.ablate_ring(x, "ring", ring=ring)
+    # Neither a ring that is no multiple of 4 nor a lane count that is no
+    # multiple of 8 is refused.
+    rng = np.random.default_rng(6)
+    x = torch.from_numpy(rng.integers(0, 4, (512, 100)).astype(np.int32))
+    for ring in (6, 512):
+        got = ablate.ablate_ring(x, "ring", ring=ring)
+        assert got.shape == (512, 100)
+        assert torch.equal(got, ablate.ablate_ring_reference(x, "ring",
+                                                             ring=ring))
+
+
+def _ring_index_model(x: np.ndarray, cell: int, ring: int,
+                      k: dict[str, int]) -> tuple[np.ndarray, int]:
+    """The ``ring`` variant as ``ablate_ring.cu`` computes it, lane by lane:
+    the ring of keys beside an index of ``kSlots`` slots of tag << kRowBits
+    | row + 1, linear probing from the key's hash; the slot of a key that
+    leaves the ring becomes ``kTomb``, and an insert takes the first
+    tombstone of its walk, else the empty slot that ended it.  Returns
+    (out i32[steps, lanes], the longest walk in slots)."""
+    slots_n, bits = k["kSlots"], k["kRowBits"]
+    steps, lanes = x.shape
+    out = np.empty_like(x)
+    longest = 0
+    for lane in range(lanes):
+        slots = [0] * slots_n
+        rows = [-1] * (ring + 1)  # rows[-1], a tombstone's row, stays -1
+        row_slot = [0] * ring  # each row's slot + 1, 0 none
+        prefix, nxt = 0, 256
+        for s in range(steps):
+            kk = int(x[s, lane])
+            key = ((prefix * 256 + kk + 2**31) % 2**32) - 2**31  # int32
+            mix = (key % 2**32) * k["kHash"] % 2**32
+            h = mix * slots_n >> 32
+            tag = (mix >> k["kTagShift"]) & 15
+            matched, walked, tomb = -1, 1, -1
+            while slots[h]:
+                if slots[h] == k["kTomb"] and tomb < 0:
+                    tomb = h
+                if slots[h] >> bits == tag:
+                    row = (slots[h] & ((1 << bits) - 1)) - 1
+                    if rows[row] == key:
+                        matched = row
+                        break
+                h = (h + 1) % slots_n
+                walked += 1
+            longest = max(longest, walked)
+            end = h if tomb < 0 else tomb
+            miss = matched < 0
+            out[s, lane] = prefix if miss else -1
+            ins = miss and nxt < k["kTableFull"]
+            w = (s % cell) % ring
+            if row_slot[w]:  # w's old key leaves the ring
+                slots[row_slot[w] - 1] = k["kTomb"]
+            rows[w] = key if ins else -1
+            row_slot[w] = end + 1 if ins else 0
+            if ins:
+                slots[end] = tag << bits | (w + 1)
+            prefix = kk if miss else matched
+            nxt += ins
+    return out, longest
+
+
+@pytest.mark.parametrize("case", list(port_ablate2.ring_cases(1024, 4, 3)))
+def test_ring_index_model_matches_plain(case):
+    # The kernel's design, held against the compare-scan of every ring row
+    # (no JAX): inputs of chip_smoke.py phase 8 at 2048 steps (4096 for
+    # the largest ring, so that its last rows are written) and 8 lanes.
+    steps = 4096 if case == "ring max" else 2048
+    x, cell, ring = port_ablate2.ring_cases(steps, 8, 5, seed=7)[case]
+    k = _constants("ablate_ring.cu")
+    assert ring <= k["kMaxRing"] < 1 << k["kRowBits"]
+    got, longest = _ring_index_model(x, cell, ring, k)
+    want = ablate.ablate_ring_reference(torch.from_numpy(x), "ring",
+                                        cell=cell, ring=ring).numpy()
+    np.testing.assert_array_equal(got, want)
+    # Every walk ended at an empty slot: none went round the index.
+    assert longest < k["kSlots"], longest
+    # The ring found keys: the case tells the index apart from a miss.
+    assert (want < 0).any() and (want >= 0).any()

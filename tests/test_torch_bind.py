@@ -7,8 +7,8 @@ one ctypes type each (a pointer ``c_void_p``, ``int`` ``c_int``,
 ``int64_t`` ``c_int64``, ``unsigned`` ``c_uint``) and an ``int`` return:
 ctypes without ``argtypes`` passes a Python int as a C int and cuts a
 pointer to 32 bits.  No wrapper sets ``argtypes`` on a call any more.  And
-P1's launch geometry (``kernels.ablate.PARSE_LAYOUT``) matches its source
-and fits one CTA's shared memory.
+P1's and P2's launch geometries (``kernels.ablate.PARSE_LAYOUT`` and
+``RING_LAYOUT``) match their sources and fit one CTA's shared memory.
 """
 
 import ctypes
@@ -108,13 +108,14 @@ def test_no_wrapper_loads_a_library_itself():
 
 
 def _constants(source: str) -> dict[str, int]:
-    """The integer ``constexpr int`` constants of a kernel source, each
-    expression evaluated over the ones before it."""
+    """The integer ``constexpr int`` and ``constexpr uint32_t`` constants of
+    a kernel source, each expression evaluated over the ones before it."""
     text = (CSRC / source).read_text()
     out: dict[str, int] = {}
-    for name, expr in re.findall(r"constexpr int (k\w+) =\s*([^;]+);",
-                                 text):
-        out[name] = int(eval(" ".join(expr.split()), {}, dict(out)))
+    for name, expr in re.findall(
+            r"constexpr (?:int|uint32_t) (k\w+) =\s*([^;]+);", text):
+        expr = re.sub(r"(\d+)u\b", r"\1", " ".join(expr.split()))
+        out[name] = int(eval(expr, {}, dict(out)))
     return out
 
 
@@ -131,6 +132,29 @@ def test_parse_layout_matches_the_source_and_fits():
     # A lane's table holds every row the parse can write (256..4095) at
     # under 5/8 of its slots, so a probe ends.
     assert k["kRows"] == 4096 - 256 and 8 * k["kRows"] <= 5 * k["kSlots"]
+
+
+def test_ring_layout_matches_the_source_and_fits():
+    k = _constants("ablate_ring.cu")
+    layout = ablate.RING_LAYOUT
+    assert layout == (k["kMaxLanesPerCta"], k["kChunk"], k["kLaneBytes"],
+                      k["kMaxRing"], k["kMaxSharedBytes"])
+    assert layout.max_shared_bytes == MAX_SHARED_BYTES
+    # The index's row field holds row + 1 in kRowBits bits.
+    assert layout.max_ring == (1 << k["kRowBits"]) - 1
+    # At most 3840 inserts keep the slots under 5/8 full, so a walk ends;
+    # a slot index fits the u16 each ring row keeps.
+    assert 8 * (4096 - 256) <= 5 * k["kSlots"] < 5 * (1 << 16)
+    for ring in (1, 4, 512, 1024, layout.max_ring):
+        per_cta = layout.lanes_per_cta(ring)
+        assert 1 <= per_cta <= layout.max_lanes_per_cta
+        assert 32 * per_cta <= 1024
+        assert layout.shared_bytes(ring) <= MAX_SHARED_BYTES
+        assert layout.shared_bytes(ring) == per_cta * (
+            k["kLaneBytes"] + 6 * ring)
+    # The script's ring of 512 keeps 8 lanes a CTA: 1024 lanes on 128 SMs.
+    assert layout.lanes_per_cta(512) == 8
+    assert layout.lanes_per_cta(layout.max_ring) == 4
 
 
 @pytest.mark.parametrize("variant", list(ablate.PARSE_VARIANTS))

@@ -24,6 +24,7 @@ from lzw_tpu_torch.kernels import encode as tenc
 from lzw_tpu_torch.kernels import schedule as tsched
 from lzw_tpu_torch.ops import bitpack as tbitpack
 from lzw_tpu_torch.ops import encode as tencode
+from lzw_tpu_torch.scripts import ablate2
 from lzw_tpu_torch.utils import testdata
 from lzw_tpu_torch.utils.corpus import load_corpus
 
@@ -436,18 +437,19 @@ def test_ablate_parse_matches_plain(variant, cuda):
         assert torch.equal(got, ablate.ablate_parse_reference(x_t, variant))
 
 
-@pytest.mark.parametrize("cell", [256, 512])
+@pytest.mark.parametrize("case", list(ablate2.ring_cases(1024, 8, 3)))
 @pytest.mark.parametrize("variant", list(ablate.RING_VARIANTS))
-def test_ablate_ring_matches_plain(variant, cell, cuda):
-    rng = np.random.default_rng(2)
-    x = rng.integers(0, 256, (1024, 8, 32)).astype(np.int32)
-    x[:, :4] &= 3  # repeated keys in the ring
+def test_ablate_ring_matches_plain(variant, case, cuda):
+    # chip_smoke.py phase 8's inputs at 256 lanes (100 for "odd lanes"):
+    # repeated keys in the ring, cells of 256, 512 and 1024, rings of 4,
+    # 512 and the largest, keys that wrap negative.
+    x, cell, ring = ablate2.ring_cases(4096, 256, 100, seed=2)[case]
     x_t = torch.from_numpy(x).to(cuda)
     before = build.LAUNCHES["ablate_ring"]
-    got = ablate.ablate_ring(x_t, variant, cell=cell)
+    got = ablate.ablate_ring(x_t, variant, cell=cell, ring=ring)
     assert build.LAUNCHES["ablate_ring"] == before + 1
-    assert torch.equal(got, ablate.ablate_ring_reference(x_t, variant,
-                                                         cell=cell))
+    assert torch.equal(got, ablate.ablate_ring_reference(
+        x_t, variant, cell=cell, ring=ring))
 
 
 @pytest.mark.parametrize("dtype", [torch.int32, torch.int16])
