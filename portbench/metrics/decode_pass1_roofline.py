@@ -1,0 +1,11 @@
+"""Decode pass 1's (``csrc/decode_pass1.cu``) share of its roofline in the
+profiled decode calls: the payload bytes and 4 B a word descriptor over
+its device time."""
+
+from portbench import readers, roofline
+
+
+def read(run):
+    return readers.kernel_roofline(
+        run, "decode", "decode_pass1_kernel",
+        lambda exp, n: roofline.decode_pass1(exp.payload_bytes, exp.codes))

@@ -1,0 +1,12 @@
+"""The encode-parse kernel's (``csrc/encode_parse.cu``) share of its
+roofline in the profiled encode calls: the input bytes and 4 B a data code
+at the HBM bandwidth (or a probe a byte at the integer peak) over its
+device time."""
+
+from portbench import readers, roofline
+
+
+def read(run):
+    return readers.kernel_roofline(
+        run, "encode", "encode_parse_kernel",
+        lambda exp, n: roofline.encode_parse(n, exp.codes))
