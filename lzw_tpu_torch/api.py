@@ -26,6 +26,7 @@ else its ``"jax"`` codec.  Without a card, ``"torch"`` on ``"cuda"``
 
 from __future__ import annotations
 
+import itertools
 from typing import BinaryIO
 
 import numpy as np
@@ -36,6 +37,7 @@ from lzw_tpu_torch.ops import decode as _decode
 from lzw_tpu_torch.ops import reference as _oracle
 from lzw_tpu_torch.ops.encode import encode_stream_bytes
 from lzw_tpu_torch.spec import CodeSizeStrategy, Endianness, LzwSpec
+from lzw_tpu_torch.utils import spans
 
 __all__ = ["LzwCodec", "GifCodec", "TiffCodec", "FixedCodec", "VariableCodec"]
 
@@ -50,7 +52,9 @@ class LzwCodec:
     ``device`` is where the ``"torch"`` backend runs (default
     :data:`DEFAULT_DEVICE`, ``"cuda"``; ``"cpu"`` runs the kernels' plain
     versions); the host backends ignore it.  ``"cuda"`` without a card
-    raises RuntimeError.
+    raises RuntimeError.  A ``"torch"`` call is a span ``lzw.encode`` or
+    ``lzw.decode`` with its steps inside (:mod:`lzw_tpu_torch.utils.spans`;
+    one block, route "device").
     """
 
     def __init__(self, spec: LzwSpec, backend: str = "auto",
@@ -80,6 +84,8 @@ class LzwCodec:
             if self.device.type not in ("cuda", "cpu"):
                 raise ValueError(f"unsupported device {self.device}")
         self.backend = backend
+        # The ids of the "torch" calls' spans.
+        self._calls = itertools.count()
 
     # ---- bytes API -----------------------------------------------------------
 
@@ -89,8 +95,10 @@ class LzwCodec:
         if self.backend == "oracle":
             return _oracle.encode_bytes(data, self.spec)
         if self.backend == "torch":
-            return encode_stream_bytes(data, self.spec, fix_eoi_width=False,
-                                       device=self.device)
+            with self._call("encode", data):
+                return encode_stream_bytes(data, self.spec,
+                                           fix_eoi_width=False,
+                                           device=self.device)
         return self._native.encode(data, self.spec)
 
     def decode(self, data: bytes | bytearray | memoryview | np.ndarray) -> bytes:
@@ -99,7 +107,8 @@ class LzwCodec:
         if self.backend == "oracle":
             return _oracle.decode_bytes(data, self.spec)
         if self.backend == "torch":
-            return self._decode_torch(data)
+            with self._call("decode", data):
+                return self._decode_torch(data)
         return self._native.decode(data, self.spec)
 
     # ---- stream API (reference's Read -> Write shape) ------------------------
@@ -155,19 +164,32 @@ class LzwCodec:
 
     # ---- torch path ----------------------------------------------------------
 
+    def _call(self, op: str, data: bytes):
+        """The span of a ``"torch"`` call, with the facade's next call id."""
+        if not spans.recording():
+            return spans.OFF
+        return spans.call(op, next(self._calls), 1, len(data),
+                          -1 if op == "encode" else spans.ROUTES.index(
+                              "device"))
+
     def _decode_torch(self, data: bytes) -> bytes:
-        row = np.zeros((1, max(len(data), 1)), np.uint8)
-        row[0, : len(data)] = np.frombuffer(data, np.uint8)
-        buf = torch.from_numpy(row).to(self.device)
-        n_valid = torch.tensor([len(data)], dtype=torch.int32,
-                               device=self.device)
-        res = _decode.decode_block(buf, n_valid, self.spec)
-        err, err_code, total = (
-            int(v) for v in torch.stack([
-                res["error"][0].long(), res["error_code"][0].long(),
-                res["total_len"][0]]).cpu())
-        _decode.raise_decode_error(err, err_code)
-        return res["out"][0, :total].cpu().numpy().tobytes()
+        with spans.span("dec_host_prep"):
+            row = np.zeros((1, max(len(data), 1)), np.uint8)
+            row[0, : len(data)] = np.frombuffer(data, np.uint8)
+        with spans.span("dec_h2d"):
+            buf = torch.from_numpy(row).to(self.device)
+            n_valid = torch.tensor([len(data)], dtype=torch.int32,
+                                   device=self.device)
+        with spans.span("dec_stream"):
+            res = _decode.decode_block(buf, n_valid, self.spec)
+        with spans.span("dec_errors"):
+            err, err_code, total = (
+                int(v) for v in torch.stack([
+                    res["error"][0].long(), res["error_code"][0].long(),
+                    res["total_len"][0]]).cpu())
+            _decode.raise_decode_error(err, err_code)
+        with spans.span("dec_d2h_out"):
+            return res["out"][0, :total].cpu().numpy().tobytes()
 
 
 class GifCodec(LzwCodec):

@@ -25,7 +25,6 @@ as the container returns them, so the host fetches one buffer.
 
 from __future__ import annotations
 
-import contextlib
 from typing import NamedTuple
 
 import numpy as np
@@ -34,6 +33,7 @@ import torch
 from lzw_tpu_torch.kernels import build, chains
 from lzw_tpu_torch.kernels import schedule as _sched
 from lzw_tpu_torch.spec import MAX_TABLE_SIZE, LzwSpec
+from lzw_tpu_torch.utils import spans
 
 __all__ = [
     "decode_pass1", "decode_pass1_reference", "decode_pass1_fixed",
@@ -324,7 +324,9 @@ def prepare_variable_decode(payloads_np: np.ndarray, plens_np, spec: LzwSpec):
         np.asarray(payloads_np), np.asarray(plens_np, dtype=np.int64), spec
     )
     S = max(min(S_raw, int(counts.max()) if N else 1), 1)
-    return counts, strict, schedule_rows(spec, S), S
+    with spans.span("recover.schedule_rows"):
+        rows = schedule_rows(spec, S)
+    return counts, strict, rows, S
 
 
 def schedule_rows(spec: LzwSpec, S: int) -> np.ndarray:
@@ -336,10 +338,6 @@ def schedule_rows(spec: LzwSpec, S: int) -> np.ndarray:
     rows[0, :] = (sched.nxt_of[:S] - 1).astype(np.int32)
     rows[1, :] = sched.epoch_start[:S].astype(np.int32)
     return rows
-
-
-def _no_stage(name: str):
-    return contextlib.nullcontext()
 
 
 class VariablePass1(NamedTuple):
@@ -370,7 +368,7 @@ def variable_pass1(payloads_np: np.ndarray, plens_np, spec: LzwSpec,
     these payloads, so a caller that has checked ``strict`` on the host does
     not recover the counts twice.
     """
-    stage = stage or _no_stage
+    stage = stage or spans.span
     if prep is None:
         with stage("dec_count_recovery"):
             prep = prepare_variable_decode(payloads_np, plens_np, spec)
@@ -387,7 +385,8 @@ def variable_pass1(payloads_np: np.ndarray, plens_np, spec: LzwSpec,
         words, totals, err, err_code, *pair = decode_pass1(
             dense, counts_t, spec, block_size, sched_t, rows=rows
         )
-    strict = strict & data_ok.cpu().numpy()
+    with spans.span("dec_strict"):
+        strict = strict & data_ok.cpu().numpy()
     return VariablePass1(dense, counts, counts_t, sched_t, strict, words,
                          totals, err, err_code, pair[0] if pair else None)
 
@@ -762,7 +761,7 @@ def decode_variable_all_device(payloads_np: np.ndarray, plens_np,
     p = variable_pass1(payloads_np, plens_np, spec, block_size, device,
                        rows="stride2" if stride2 else "stride1", stage=stage,
                        prep=prep)
-    with (stage or _no_stage)("dec_pass2"):
+    with (stage or spans.span)("dec_pass2"):
         if flat:
             walk = (decode_pass2_stride2_flat if stride2
                     else decode_pass2_device_flat)
@@ -788,7 +787,7 @@ def decode_fixed_all_device(payloads: torch.Tensor, plens: torch.Tensor,
     Returns (blocks u8[N, block_size], totals, errs, err_codes); with
     ``flat`` the blocks are u8[sum(totals)], back to back in block order.
     """
-    stage = stage or _no_stage
+    stage = stage or spans.span
     with stage("dec_pass1"):
         words, n_codes, totals, err, err_code, codes, pair = (
             decode_pass1_fixed(payloads, plens, block_size, little,

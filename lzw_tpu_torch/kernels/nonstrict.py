@@ -18,7 +18,6 @@ kernel groups and of the output width to pass-2 buckets.
 
 from __future__ import annotations
 
-import contextlib
 import functools
 
 import numpy as np
@@ -32,6 +31,7 @@ from lzw_tpu_torch.spec import (
     BlockOverflowError, LzwSpec, MAX_WIDTH, MissingClearCodeError,
     TruncatedStreamError, UnexpectedCodeError,
 )
+from lzw_tpu_torch.utils import spans
 
 __all__ = ["parse_epochs", "split_substreams",
            "decode_variable_nonstrict_device"]
@@ -329,7 +329,7 @@ def decode_variable_nonstrict_device(payloads, plens, spec: LzwSpec,
     (``dec_parse_epochs``, ``dec_h2d``, ``dec_pass1``, ``dec_pass2``,
     ``dec_d2h_out``).
     """
-    stage = stage or (lambda name: contextlib.nullcontext())
+    stage = stage or spans.span
     N = payloads.shape[0]
     failed = []
     with stage("dec_parse_epochs"):
@@ -348,29 +348,31 @@ def decode_variable_nonstrict_device(payloads, plens, spec: LzwSpec,
         words, totals, errs, err_codes, pair = decode_pass1(
             dense_t, cnt_t, spec, block_size, sched_t, rows="stride2"
         )
-    errs = errs.cpu().numpy()
-    te = totals.cpu().numpy().astype(np.int64)
-    # A stream fails where pass 1 refused one of its sub-streams, where
-    # they pass block_size together, or where its parse failed.
-    refused = np.bincount(owner, weights=errs != 0, minlength=N) > 0
-    long = np.bincount(owner, weights=np.where(errs == 0, te, 0),
-                       minlength=N) > block_size
-    failing = refused | long | parse_failed
-    if failing.any():
-        b = int(np.argmax(failing))
-        rows = np.nonzero(owner == b)[0]
-        w = words[torch.from_numpy(rows).to(words.device)].cpu().numpy()
-        # None only where the words disagree with the totals.
-        raise _stream_error(rows, dense, cnt, w, errs,
-                            err_codes.cpu().numpy(), te, block_size,
-                            failed[b]) or BlockOverflowError(block_size)
+    with spans.span("dec_errors"):
+        errs = errs.cpu().numpy()
+        te = totals.cpu().numpy().astype(np.int64)
+        # A stream fails where pass 1 refused one of its sub-streams, where
+        # they pass block_size together, or where its parse failed.
+        refused = np.bincount(owner, weights=errs != 0, minlength=N) > 0
+        long = np.bincount(owner, weights=np.where(errs == 0, te, 0),
+                           minlength=N) > block_size
+        failing = refused | long | parse_failed
+        if failing.any():
+            b = int(np.argmax(failing))
+            rows = np.nonzero(owner == b)[0]
+            w = words[torch.from_numpy(rows).to(words.device)].cpu().numpy()
+            # None only where the words disagree with the totals.
+            raise _stream_error(rows, dense, cnt, w, errs,
+                                err_codes.cpu().numpy(), te, block_size,
+                                failed[b]) or BlockOverflowError(block_size)
     with stage("dec_pass2"):
         # The sub-streams' bytes back to back, in (owner, epoch) order.
         flat = decode_pass2_stride2_flat(dense_t, words, pair, cnt_t, totals,
                                          block_size, spec, sched_t)
     with stage("dec_d2h_out"):
         flat = to_host(flat)
-    ends = np.cumsum(np.bincount(owner, weights=te, minlength=N)).astype(
-        np.int64)
-    starts = np.concatenate([[0], ends[:-1]])
-    return [flat[a:b].tobytes() for a, b in zip(starts, ends)]
+    with spans.span("dec_join"):
+        ends = np.cumsum(np.bincount(owner, weights=te, minlength=N)).astype(
+            np.int64)
+        starts = np.concatenate([[0], ends[:-1]])
+        return [flat[a:b].tobytes() for a, b in zip(starts, ends)]

@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from lzw_tpu_torch.spec import LzwSpec, MAX_WIDTH
+from lzw_tpu_torch.utils import spans
 
 __all__ = [
     "Schedule", "emission_schedule", "pack_variable", "recover_counts",
@@ -238,18 +239,24 @@ def recover_counts(payloads, plens, spec: LzwSpec):
     checks that need only a handful of byte reads per stream (byte-length /
     EOI match, leading CLEAR, mid-stream CLEARs); the per-data-slot
     CLEAR/EOI check lives with the unpack.
+
+    Counts ``recover.blocks`` (the N rows) and ``recover.reads`` (the rows
+    the candidates' EOI reads read: every row, a read) in
+    :mod:`lzw_tpu_torch.utils.spans`.
     """
     if not spec.variable:
         raise ValueError("recover_counts takes a variable-width spec")
     N, PB = payloads.shape
+    spans.count("recover.blocks", N)
     # Upper bound on data codes: every code at the minimum width.
     S = int((8 * PB) // spec.initial_width + 2)
     sched = emission_schedule(spec, S)
     little = spec.endianness.value == "little"
 
-    # int32 suffices: reads combine <= 3 bytes (< 2^24) before shifting.
-    padded = np.zeros((N, PB + 4), np.int32)
-    padded[:, :PB] = payloads
+    with spans.span("recover.pad"):
+        # int32 suffices: reads combine <= 3 bytes (< 2^24) before shifting.
+        padded = np.zeros((N, PB + 4), np.int32)
+        padded[:, :PB] = payloads
 
     def read_cols(bit_offs, widths):
         """Read one symbol per (stream, position): bit_offs/widths (M,)."""
@@ -264,52 +271,56 @@ def recover_counts(payloads, plens, spec: LzwSpec):
                | padded[:, b0 + 2])
         return (wbe >> (24 - (bit_offs & 7) - widths)) & ((1 << widths) - 1)
 
-    totals = sched.eoi_tables(True)[2]
-    totals_nofix = sched.eoi_tables(False)[2]
-    byte_len = (totals + 7) // 8
-    byte_len_nofix = (totals_nofix + 7) // 8
     counts = np.zeros(N, np.int64)
     chosen = np.zeros(N, bool)
     strict = np.ones(N, bool)
-
     plens = np.asarray(plens, np.int64)
-    chosen |= plens == 0  # n = 0
-    for nbytes in np.unique(plens[~chosen]) if (~chosen).any() else []:
-        rows = np.nonzero(plens == nbytes)[0]
-        cands = np.nonzero(
-            (byte_len == nbytes) | (byte_len_nofix == nbytes)
-        )[0]
-        for n in cands[::-1]:
-            n = int(n)
-            todo = rows[~chosen[rows]]
-            if todo.size == 0:
-                break
-            for fix in (True, False):
-                if (sched.total_bits(n, fix) + 7) // 8 != nbytes:
-                    continue
-                off = sched.total_bits(n, fix) - sched.eoi_width(n, fix)
-                w = sched.eoi_width(n, fix)
-                if (off >> 3) + 2 >= padded.shape[1]:
-                    continue
-                v = read_cols([off], [w])[todo, 0]
-                hit = todo[v == spec.end_code]
-                counts[hit] = n
-                chosen[hit] = True
+    reads = 0
+    with spans.span("recover.candidates"):
+        totals = sched.eoi_tables(True)[2]
+        totals_nofix = sched.eoi_tables(False)[2]
+        byte_len = (totals + 7) // 8
+        byte_len_nofix = (totals_nofix + 7) // 8
+        chosen |= plens == 0  # n = 0
+        for nbytes in np.unique(plens[~chosen]) if (~chosen).any() else []:
+            rows = np.nonzero(plens == nbytes)[0]
+            cands = np.nonzero(
+                (byte_len == nbytes) | (byte_len_nofix == nbytes)
+            )[0]
+            for n in cands[::-1]:
+                n = int(n)
+                todo = rows[~chosen[rows]]
+                if todo.size == 0:
+                    break
+                for fix in (True, False):
+                    if (sched.total_bits(n, fix) + 7) // 8 != nbytes:
+                        continue
+                    off = sched.total_bits(n, fix) - sched.eoi_width(n, fix)
+                    w = sched.eoi_width(n, fix)
+                    if (off >> 3) + 2 >= padded.shape[1]:
+                        continue
+                    v = read_cols([off], [w])[todo, 0]
+                    reads += N
+                    hit = todo[v == spec.end_code]
+                    counts[hit] = n
+                    chosen[hit] = True
+    spans.count("recover.reads", reads)
     strict &= chosen
     counts[~chosen] = 0
     max_n = int(counts.max()) if N else 0
 
-    # Validate the leading CLEAR.
-    lead = read_cols([0], [spec.initial_width])[:, 0]
-    strict &= (lead == spec.clear_code) | (plens == 0)
+    with spans.span("recover.strict"):
+        # Validate the leading CLEAR.
+        lead = read_cols([0], [spec.initial_width])[:, 0]
+        strict &= (lead == spec.clear_code) | (plens == 0)
 
-    # Mid-stream CLEARs (a handful of positions).
-    for m in np.nonzero(sched.clear_after[:max_n])[0]:
-        cvals = read_cols(
-            [int(sched.bit_off[m] + sched.widths[m])], [MAX_WIDTH]
-        )[:, 0]
-        mid = (m + 1) < counts
-        strict &= ~mid | (cvals == spec.clear_code)
+        # Mid-stream CLEARs (a handful of positions).
+        for m in np.nonzero(sched.clear_after[:max_n])[0]:
+            cvals = read_cols(
+                [int(sched.bit_off[m] + sched.widths[m])], [MAX_WIDTH]
+            )[:, 0]
+            mid = (m + 1) < counts
+            strict &= ~mid | (cvals == spec.clear_code)
 
     return counts, strict, S
 

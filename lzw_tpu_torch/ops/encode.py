@@ -25,8 +25,6 @@ facades' one stream.
 
 from __future__ import annotations
 
-import contextlib
-
 import numpy as np
 import torch
 
@@ -37,6 +35,7 @@ from lzw_tpu_torch.kernels.encode import (
 from lzw_tpu_torch.spec import (
     MAX_TABLE_SIZE, MAX_WIDTH, Endianness, LzwSpec, UnexpectedCodeError,
 )
+from lzw_tpu_torch.utils import spans
 
 __all__ = ["ERR_NONE", "ERR_UNEXPECTED_CODE", "MAX_ROW", "MAX_STREAM",
            "encode_block", "encode_stream_bytes", "encoder_output_slots",
@@ -188,10 +187,13 @@ def encode_stream_bytes(data: bytes, spec: LzwSpec,
     the first, and ValueError for a stream longer than :data:`MAX_STREAM`.
     ``stage(name)``, when given, is a context manager timing each step
     (``enc_h2d``, ``enc_kernel``, ``enc_pack``, ``enc_d2h``), as the
-    container's stages are named.
+    container's stages are named; without it each step is a span
+    (:mod:`lzw_tpu_torch.utils.spans`).  The row's build
+    (``enc_host_prep``) and the error read (``enc_errors``) are spans
+    only.
     """
     spec.validate()
-    stage = stage or (lambda name: contextlib.nullcontext())
+    stage = stage or spans.span
     if len(data) > MAX_STREAM:
         raise ValueError(f"a stream of {len(data)} bytes is past the "
                          f"{MAX_STREAM} that the parse kernel's i32 "
@@ -199,16 +201,18 @@ def encode_stream_bytes(data: bytes, spec: LzwSpec,
     device = torch.device(device)
     # A row of whole 16-byte pieces, as the kernel reads it (an empty
     # stream is a row of length 0).
-    row = np.zeros((1, max(-(-len(data) // 16) * 16, 16)), np.uint8)
-    row[0, : len(data)] = np.frombuffer(bytes(data), np.uint8)
+    with spans.span("enc_host_prep"):
+        row = np.zeros((1, max(-(-len(data) // 16) * 16, 16)), np.uint8)
+        row[0, : len(data)] = np.frombuffer(bytes(data), np.uint8)
     with stage("enc_h2d"):
         blocks = torch.from_numpy(row).to(device)
         lens = torch.tensor([len(data)], dtype=torch.int32, device=device)
     with stage("enc_kernel"):
         dense, counts, err, err_code = encode_stream_codes(blocks, lens,
                                                            spec)
-    if int(err[0]):
-        raise UnexpectedCodeError(int(err_code[0]), spec.code_size)
+    with spans.span("enc_errors"):
+        if int(err[0]):
+            raise UnexpectedCodeError(int(err_code[0]), spec.code_size)
     with stage("enc_pack"):
         bufs, n_bytes = pack_dense(dense[:, : max(int(counts[0]), 1)],
                                    counts, spec, fix_eoi=fix_eoi_width)

@@ -51,10 +51,10 @@ size -> native encode" route.
 from __future__ import annotations
 
 import contextlib
+import itertools
 import math
 import subprocess
 import threading
-import time
 from collections.abc import Sequence
 from concurrent.futures import ThreadPoolExecutor
 from typing import NamedTuple
@@ -62,6 +62,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from lzw_tpu_torch.kernels import build
 from lzw_tpu_torch.kernels.decode import (
     MAX_BLOCK, decode_fixed_all_device, decode_pass1_fixed,
     decode_variable_all_device, prepare_variable_decode, variable_pass1,
@@ -80,6 +81,7 @@ from lzw_tpu_torch.spec import (
     UnexpectedCodeError,
     VerificationError,
 )
+from lzw_tpu_torch.utils import spans
 
 __all__ = ["BlockParallelCodec", "DEFAULT_BLOCK_SIZE",
            "DEFAULT_FIXED_BLOCK_SIZE", "default_devices", "local_devices"]
@@ -163,14 +165,11 @@ class _Range(NamedTuple):
     hi: int
 
 
-def _no_stage(name: str):
-    return contextlib.nullcontext()
-
-
 def _on_device(device: torch.device):
-    """A context in which ``device`` is the current CUDA device."""
+    """A context in which ``device`` is the current CUDA device (no switch
+    where it is current already)."""
     if device.type == "cuda":
-        return torch.cuda.device(device)
+        return build.on_device(device)
     return contextlib.nullcontext()
 
 
@@ -189,6 +188,12 @@ def _read_exact(src, n: int) -> bytes:
 
 def _host(t: torch.Tensor) -> np.ndarray:
     return t.cpu().numpy()
+
+
+def _errors(errs: torch.Tensor, err_codes: torch.Tensor):
+    """A pass 1's error rows on the host, in the span ``dec_errors``."""
+    with spans.span("dec_errors"):
+        return _host(errs), _host(err_codes)
 
 
 def _payload_matrix(payloads, width: int):
@@ -285,6 +290,8 @@ class BlockParallelCodec:
         self.stage_times = stage_times
         self._stage_lock = threading.Lock()
         self.pass2 = pass2
+        # The ids of the calls' spans.
+        self._calls = itertools.count()
 
     # ---- ranges, threads and stages --------------------------------------
 
@@ -303,9 +310,10 @@ class BlockParallelCodec:
     def _map(fn, ranges: list[_Range], states=None) -> list:
         """``fn(range)``, or ``fn(range, state)`` with the range's entry of
         ``states``, for every range under its device: in this thread for
-        one range, else on one worker thread per range.  Returns the results
-        in block order; when ranges raise, the exception of the first of
-        them in block order is raised, whichever thread ended first."""
+        one range, else on one worker thread per range, in its span
+        ``lzw.range``.  Returns the results in block order; when ranges
+        raise, the exception of the first of them in block order is raised,
+        whichever thread ended first."""
         if states is None:
             args = [(r,) for r in ranges]
         else:
@@ -317,45 +325,59 @@ class BlockParallelCodec:
 
         if len(args) == 1:
             return [run(args[0])]
+        call = spans.current_call()
+
+        def ranged(a):
+            # The call's id joins the worker thread's spans to their call.
+            r = a[0]
+            with spans.span("range", (
+                    call, -1 if r.device.index is None else r.device.index,
+                    r.lo, r.hi)):
+                return run(a)
+
         with ThreadPoolExecutor(len(args),
                                 thread_name_prefix="lzw-range") as pool:
-            futures = [pool.submit(run, a) for a in args]
+            futures = [pool.submit(ranged, a) for a in args]
         return [f.result() for f in futures]
 
     def _stage_fn(self, device: torch.device | None = None):
-        """The stage timer of work on ``device``, or with None of the codec
-        as a whole: ``stage(name)`` is a context manager that, with
-        ``stage_times`` given, synchronises the device (or every device)
-        around its body and adds the seconds under the stage's key (with a
-        lock: ranges run on several threads)."""
-        if self.stage_times is None:
-            return _no_stage
+        """The stage hook of work on ``device``, or with None of the codec
+        as a whole (:func:`lzw_tpu_torch.utils.spans.staged`):
+        ``stage(name)`` is the stage's span, and with ``stage_times`` given
+        it also synchronises the device (or every device) around its body
+        and adds the seconds under the stage's key (with a lock: ranges run
+        on several threads)."""
         key = "" if device is None or len(self.devices) == 1 else f"@{device}"
-        devices = self.devices if device is None else (device,)
+        return spans.staged(self.stage_times, self._stage_lock,
+                            self.devices if device is None else (device,),
+                            key)
 
-        def sync():
-            for d in devices:
-                if d.type == "cuda":
-                    torch.cuda.synchronize(d)
-
-        @contextlib.contextmanager
-        def stage(name: str):
-            sync()
-            t0 = time.perf_counter()
-            yield
-            sync()
-            dt = time.perf_counter() - t0
-            with self._stage_lock:
-                self.stage_times[name + key] = (
-                    self.stage_times.get(name + key, 0.0) + dt)
-
-        return stage
+    def _call(self, op: str, data: bytes):
+        """The span of a public call on ``data`` (the input, or the
+        container), :func:`lzw_tpu_torch.utils.spans.call`, with the codec's
+        next call id; a decode's route is the one its strict blocks take."""
+        if not spans.recording():
+            return spans.OFF
+        if op == "encode":
+            return spans.call(op, next(self._calls),
+                              -(-len(data) // self.block_size), len(data))
+        # "host" is not asked for the runtime here: an empty container
+        # decodes without it.
+        route = ("big" if self.block_size > MAX_BLOCK
+                 else "host" if self.pass2 == "host"
+                 else "device" if self._host_pass2() is None else "host")
+        return spans.call(op, next(self._calls), framing.block_count(data),
+                          len(data), spans.ROUTES.index(route))
 
     # ---- public API ----------------------------------------------------------
 
     def encode(self, data: bytes) -> bytes:
         """Compress to the LZWT container."""
         data = bytes(data)
+        with self._call("encode", data):
+            return self._encode(data)
+
+    def _encode(self, data: bytes) -> bytes:
         n_blocks = math.ceil(len(data) / self.block_size) if data else 0
         if n_blocks == 0:
             return framing.pack_frame(self.spec, self.block_size, 0, [])
@@ -364,9 +386,11 @@ class BlockParallelCodec:
                               self._ranges(n_blocks))
         payloads = [p for part in per_range for p in part]
         if self.verify:
-            self._verify_sample(data, payloads)
-        return framing.pack_frame(self.spec, self.block_size, len(data),
-                                  payloads)
+            with spans.span("enc_verify"):
+                self._verify_sample(data, payloads)
+        with spans.span("pack_frame"):
+            return framing.pack_frame(self.spec, self.block_size, len(data),
+                                      payloads)
 
     def _encode_range(self, r: _Range, arr: np.ndarray) -> list[bytes]:
         """The payloads of blocks [r.lo, r.hi) of ``arr``, encoded on
@@ -392,12 +416,13 @@ class BlockParallelCodec:
             dense, counts, errs, err_codes = encode_blocks_codes(
                 blocks_t, lens_t, self.spec
             )
-        errs = errs.cpu().numpy()
-        if errs.any():
-            i = int(np.argmax(errs != 0))
-            raise UnexpectedCodeError(
-                int(err_codes[i]), self.spec.code_size
-            )
+        with spans.span("enc_errors"):
+            errs = errs.cpu().numpy()
+            if errs.any():
+                i = int(np.argmax(errs != 0))
+                raise UnexpectedCodeError(
+                    int(err_codes[i]), self.spec.code_size
+                )
         with stage("enc_pack"):
             if self.spec.variable:
                 # Pack only the columns some block filled.
@@ -409,7 +434,8 @@ class BlockParallelCodec:
         with stage("enc_d2h"):
             bufs = bufs.cpu().numpy()
             n_bytes = n_bytes.cpu().numpy()
-        return [bufs[i, : n_bytes[i]].tobytes() for i in range(n)]
+        with spans.span("enc_payloads"):
+            return [bufs[i, : n_bytes[i]].tobytes() for i in range(n)]
 
     def _verify_sample(self, data: bytes, payloads: list[bytes]) -> None:
         """Decode-check the largest payload of the batch against its source
@@ -444,7 +470,13 @@ class BlockParallelCodec:
 
     def decode(self, container: bytes) -> bytes:
         """Decompress an LZWT container (order-preserving gather)."""
-        header, payloads = framing.parse_frame(bytes(container))
+        container = bytes(container)
+        with self._call("decode", container):
+            return self._decode(container)
+
+    def _decode(self, container: bytes) -> bytes:
+        with spans.span("parse_frame"):
+            header, payloads = framing.parse_frame(container)
         # Wire-equivalence, not dataclass equality: any spec constructor that
         # names the same byte format decodes the container.
         if not header.spec.wire_equivalent(self.spec):
@@ -483,8 +515,9 @@ class BlockParallelCodec:
         if self._native() is None:
             return on_device()
         try:
-            return get_runtime().decode_blocks(
-                [bytes(p) for p in payloads], self.spec, self.block_size)
+            with spans.span("dec_native"):
+                return get_runtime().decode_blocks(
+                    [bytes(p) for p in payloads], self.spec, self.block_size)
         except BlockOverflowError:
             on_device()
             raise
@@ -528,11 +561,11 @@ class BlockParallelCodec:
             if rt is None:
                 out, _, errs, err_codes = decode_fixed_all_device(
                     mat_t, plens_t, bs, little, stage, flat=True)
-                return _host(errs), _host(err_codes), out
+                return (*_errors(errs, err_codes), out)
             with stage("dec_pass1"):
                 words, _, _, errs, err_codes, codes = decode_pass1_fixed(
                     mat_t, plens_t, bs, little)
-            return _host(errs), _host(err_codes), (words, codes)
+            return (*_errors(errs, err_codes), (words, codes))
 
         ranges = self._ranges(len(payloads))
         states = self._map(pass1, ranges)
@@ -562,10 +595,10 @@ class BlockParallelCodec:
                 out, _, errs, err_codes, strict = decode_variable_all_device(
                     mat, plens, self.spec, bs, r.device, stage, flat=True,
                     prep=prep)
-                return strict, (_host(errs), _host(err_codes), out)
+                return strict, (*_errors(errs, err_codes), out)
             p = variable_pass1(mat, plens, self.spec, bs, r.device,
                                stage=stage, prep=prep)
-            return p.strict, (_host(p.err), _host(p.err_code),
+            return p.strict, (*_errors(p.err, p.err_code),
                               (p.words, p.dense))
 
         ranges = self._ranges(len(payloads))
@@ -588,8 +621,10 @@ class BlockParallelCodec:
             with stage("dec_host_prep"):
                 mat, plens = _payload_matrix(
                     payloads, max(len(p) for p in payloads))
-            return b"".join(decode_variable_nonstrict_device(
-                mat, plens, self.spec, self.block_size, r.device, stage))
+            streams = decode_variable_nonstrict_device(
+                mat, plens, self.spec, self.block_size, r.device, stage)
+            with spans.span("dec_join"):
+                return b"".join(streams)
 
         return self._map(run, [_Range(self.device, 0, len(payloads))])[0]
 
@@ -614,9 +649,10 @@ class BlockParallelCodec:
             with stage("dec_stream"):
                 res = _stream.decode_block(mat_t, plens_t, self.spec, bs,
                                            overflow_error=True)
-            stats = _host(torch.stack([res["error"].long(),
-                                       res["error_code"].long(),
-                                       res["total_len"]]))
+            with spans.span("dec_errors"):
+                stats = _host(torch.stack([res["error"].long(),
+                                           res["error_code"].long(),
+                                           res["total_len"]]))
             return stats, res["out"]
 
         ranges = self._ranges(len(payloads))
@@ -646,12 +682,13 @@ class BlockParallelCodec:
         that passes it).  ``raise_error(err, code)`` raises an error kind
         of the single-stream decoder; without it every kind is the
         container pass 1's, an :class:`UnexpectedCodeError`."""
-        for errs, err_codes, _ in states:
-            if errs.any():
-                i = int(np.argmax(errs != 0))
-                if raise_error is not None:
-                    raise_error(int(errs[i]), int(err_codes[i]))
-                raise UnexpectedCodeError(int(err_codes[i]))
+        with spans.span("dec_errors"):
+            for errs, err_codes, _ in states:
+                if errs.any():
+                    i = int(np.argmax(errs != 0))
+                    if raise_error is not None:
+                        raise_error(int(errs[i]), int(err_codes[i]))
+                    raise UnexpectedCodeError(int(err_codes[i]))
 
     def _finish(self, rt, ranges: list[_Range], states) -> bytes:
         """Every range's bytes after a pass 1 without errors, in block

@@ -99,6 +99,14 @@ def pack_frame(
     return header + lengths + b"".join(payloads)
 
 
+def block_count(data: bytes) -> int:
+    """The block count a container's header gives, 0 where it is too short
+    to give one."""
+    if len(data) < HEADER_SIZE:
+        return 0
+    return struct.unpack_from(_HEADER_FMT, data, 0)[7]
+
+
 def parse_frame(data: bytes) -> tuple[FrameHeader, list[memoryview]]:
     """Parse header + length table; returns zero-copy payload views."""
     if len(data) < HEADER_SIZE:

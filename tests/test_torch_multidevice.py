@@ -30,6 +30,7 @@ from lzw_tpu_torch.kernels import build
 from lzw_tpu_torch.native.runtime import NativeRuntime
 from lzw_tpu_torch.ops import reference as oracle
 from lzw_tpu_torch.parallel import default_devices, framing, local_devices
+from lzw_tpu_torch.utils import spans
 from lzw_tpu_torch.utils.testdata import spliced_nonstrict_stream
 
 BS = 512
@@ -253,7 +254,7 @@ def test_stage_times_under_threads(monkeypatch):
         local.t = getattr(local, "t", 0) + 1
         return float(local.t)
 
-    monkeypatch.setattr(block, "time", types.SimpleNamespace(
+    monkeypatch.setattr(spans, "time", types.SimpleNamespace(
         perf_counter=clock))
     times = _Yielding()
     codec = BlockParallelCodec(LzwSpec.gif(7), BS, device=_cpus(8),
