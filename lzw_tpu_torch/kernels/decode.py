@@ -32,6 +32,7 @@ import torch
 
 from lzw_tpu_torch.kernels import build, chains
 from lzw_tpu_torch.kernels import schedule as _sched
+from lzw_tpu_torch.kernels.schedule import schedule_rows
 from lzw_tpu_torch.spec import MAX_TABLE_SIZE, LzwSpec
 from lzw_tpu_torch.utils import spans
 
@@ -327,17 +328,6 @@ def prepare_variable_decode(payloads_np: np.ndarray, plens_np, spec: LzwSpec):
     with spans.span("recover.schedule_rows"):
         rows = schedule_rows(spec, S)
     return counts, strict, rows, S
-
-
-def schedule_rows(spec: LzwSpec, S: int) -> np.ndarray:
-    """The schedule rows i32[2, S] of a strict variable stream: per step,
-    the decoder's next index (the encoder's minus one) and the ordinal of
-    the step's epoch start."""
-    sched = _sched.emission_schedule(spec, S)
-    rows = np.zeros((2, S), np.int32)
-    rows[0, :] = (sched.nxt_of[:S] - 1).astype(np.int32)
-    rows[1, :] = sched.epoch_start[:S].astype(np.int32)
-    return rows
 
 
 class VariablePass1(NamedTuple):

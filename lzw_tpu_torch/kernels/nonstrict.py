@@ -283,10 +283,8 @@ def split_substreams(payloads, plens, spec: LzwSpec, failed=None):
     """
     dense, cnt, owner, _ = parse_epochs(payloads, plens, spec, failed)
     S = int(cnt.max(initial=1))
-    sched = _sched.emission_schedule(spec, S)
-    sched_arr = np.stack([sched.nxt_of[:S] - 1,
-                          sched.epoch_start[:S]]).astype(np.int32)
-    return np.ascontiguousarray(dense[:, :S]), cnt, owner, sched_arr
+    return (np.ascontiguousarray(dense[:, :S]), cnt, owner,
+            _sched.schedule_rows(spec, S))
 
 
 def _stream_error(rows, dense, cnt, words, errs, err_codes, totals,

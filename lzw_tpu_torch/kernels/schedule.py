@@ -7,7 +7,10 @@ positions, bit offsets) is a static schedule.  The encode kernel only has to
 produce code values; packing and unpacking are static-offset arithmetic.
 
 ``Schedule``, ``emission_schedule`` and ``recover_counts`` stay numpy on the
-host, as in the JAX package, and ``unpack_variable`` is its host unpack.  ``pack_variable`` and
+host, as in the JAX package, and ``unpack_variable`` is its host unpack.
+A spec's schedule and the tables derived from it are built once per
+power-of-two capacity and sliced to the length a call needs, so a batch
+with a new longest stream builds nothing.  ``pack_variable`` and
 ``unpack_variable_device`` were XLA glue there and are torch ops here, run on
 the device of the tensors they are given: one scatter-add (pack) or gather
 (unpack) per byte lane over per-ordinal offset tables, in place of the JAX
@@ -18,6 +21,7 @@ cheap gather.
 from __future__ import annotations
 
 import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -27,7 +31,7 @@ from lzw_tpu_torch.utils import spans
 
 __all__ = [
     "Schedule", "emission_schedule", "pack_variable", "recover_counts",
-    "unpack_variable", "unpack_variable_device",
+    "schedule_rows", "unpack_variable", "unpack_variable_device",
 ]
 
 
@@ -127,29 +131,116 @@ class Schedule:
             total[1:] = self.bit_off[1 : S + 1] - MAX_WIDTH * clear + w[1:]
         return total - w, w, total
 
+    def prefix(self, n_max: int) -> "Schedule":
+        """The schedule of ordinals 0..n_max-1 (n_max <= self.n_max): each
+        array's prefix, equal to ``Schedule(spec, n_max)``'s."""
+        if n_max == self.n_max:
+            return self
+        if not 0 <= n_max < self.n_max:
+            raise ValueError(f"prefix {n_max} outside 0..{self.n_max}")
+        out = object.__new__(Schedule)
+        out.spec, out.n_max = self.spec, n_max
+        for name in ("widths", "nxt_of", "clear_after", "epoch_start"):
+            setattr(out, name, getattr(self, name)[:n_max])
+        out.bit_off = self.bit_off[: n_max + 1]
+        out.next_width = self.next_width[: n_max + 1]
+        return out
 
-@functools.lru_cache(maxsize=64)
+
+def _capacity(n: int) -> int:
+    """The size of the cached tables that serve n ordinals: the next power
+    of two at or above n, so that a new stream length rarely builds one."""
+    return 1 << max(n - 1, 0).bit_length()
+
+
+class _Tables(NamedTuple):
+    """A spec's schedule at one capacity and the tables derived from it.
+
+    Every array is prefix-consistent: its entries for ordinals (or counts)
+    up to n equal those built for a schedule of n, so a caller slices the
+    prefix it needs.  ``eoi_off``, ``eoi_w`` and ``nbytes`` hold a row for
+    each EOI rule (``fix_eoi`` 0, then 1) over counts n = 0..cap: the EOI's
+    bit offset and width and the stream's wire byte length, which is
+    non-decreasing in n.  The arrays are read-only: every caller shares
+    them.
+    """
+
+    sched: Schedule
+    eoi_off: np.ndarray    # i64[2, cap + 1]
+    eoi_w: np.ndarray      # i64[2, cap + 1]
+    nbytes: np.ndarray     # i64[2, cap + 1]
+    clear_m: np.ndarray    # ordinals followed by a CLEAR (ascending)
+    clear_off: np.ndarray  # the bit offsets of those CLEARs
+    rows: np.ndarray       # i32[2, cap]: the decoder's next index, epoch start
+
+
+@functools.lru_cache(maxsize=16)
+def _tables_at(spec: LzwSpec, cap: int) -> _Tables:
+    sched = Schedule(spec, cap)
+    off, w, total = (np.stack(a) for a in zip(
+        *(sched.eoi_tables(fix) for fix in (False, True))))
+    nbytes = (total + 7) // 8
+    # A CLEAR only adds bits, and the final code's CLEAR is dropped, so the
+    # byte lengths never fall: count recovery searches them.
+    if (nbytes[:, 1:] < nbytes[:, :-1]).any():
+        raise RuntimeError(f"wire byte lengths of {spec} fall somewhere")
+    clear_m = np.nonzero(sched.clear_after)[0]
+    clear_off = sched.bit_off[clear_m] + sched.widths[clear_m]
+    rows = np.stack([sched.nxt_of - 1, sched.epoch_start]).astype(np.int32)
+    for arr in (*vars(sched).values(), off, w, nbytes, clear_m, clear_off,
+                rows):
+        if isinstance(arr, np.ndarray):
+            arr.flags.writeable = False
+    return _Tables(sched, off, w, nbytes, clear_m, clear_off, rows)
+
+
+def _tables(spec: LzwSpec, n: int) -> _Tables:
+    """The cached tables that hold ordinals and counts 0..n."""
+    return _tables_at(spec, _capacity(n))
+
+
 def emission_schedule(spec: LzwSpec, n_max: int) -> Schedule:
-    return Schedule(spec, n_max)
+    """``Schedule(spec, n_max)``, sliced from the cached tables (its arrays
+    are read-only)."""
+    return _tables(spec, n_max).sched.prefix(n_max)
+
+
+def schedule_rows(spec: LzwSpec, S: int) -> np.ndarray:
+    """The schedule rows i32[2, S] of a strict variable stream: per step,
+    the decoder's next index (the encoder's minus one) and the ordinal of
+    the step's epoch start."""
+    return np.ascontiguousarray(_tables(spec, S).rows[:, :S])
+
+
+@functools.lru_cache(maxsize=16)
+def _device_tables_at(spec: LzwSpec, cap: int, fix_eoi: bool,
+                      device: torch.device):
+    tabs = _tables_at(spec, cap)
+
+    def t(a):
+        return torch.tensor(a, dtype=torch.int64, device=device)
+
+    return {"bit_off": t(tabs.sched.bit_off), "widths": t(tabs.sched.widths),
+            "clear_m": t(tabs.clear_m), "clear_off": t(tabs.clear_off),
+            "eoi_off": t(tabs.eoi_off[int(fix_eoi)]),
+            "eoi_w": t(tabs.eoi_w[int(fix_eoi)]),
+            "nbytes": t(tabs.nbytes[int(fix_eoi)])}
 
 
 @functools.lru_cache(maxsize=16)
 def _device_tables(spec: LzwSpec, S: int, fix_eoi: bool, device: torch.device):
-    """Per-ordinal (bit offset, width) and per-count EOI tables on a device."""
-    sched = emission_schedule(spec, S)
-    eoi_off, eoi_w, total = sched.eoi_tables(fix_eoi)
-    # CLEAR symbols sit right after their data code, 12 bits wide.
-    clear_m = np.nonzero(sched.clear_after[:S])[0]
-    clear_off = sched.bit_off[clear_m] + sched.widths[clear_m]
-
-    def t(a):
-        return torch.as_tensor(np.asarray(a, np.int64), device=device)
-
+    """Per-ordinal (bit offset, width) and per-count EOI tables on a device:
+    the prefixes for S ordinals of tables cached per capacity."""
+    tabs = _tables(spec, S)
+    full = _device_tables_at(spec, _capacity(S), fix_eoi, device)
+    k = int(np.searchsorted(tabs.clear_m, S))
     return {
-        "bit_off": t(sched.bit_off[:S]), "widths": t(sched.widths[:S]),
-        "clear_m": t(clear_m), "clear_off": t(clear_off),
-        "eoi_off": t(eoi_off), "eoi_w": t(eoi_w),
-        "nbytes": t((total + 7) // 8), "max_bits": int(total[S]),
+        "bit_off": full["bit_off"][:S], "widths": full["widths"][:S],
+        "clear_m": full["clear_m"][:k], "clear_off": full["clear_off"][:k],
+        "eoi_off": full["eoi_off"][: S + 1], "eoi_w": full["eoi_w"][: S + 1],
+        "nbytes": full["nbytes"][: S + 1],
+        "max_bits": int(tabs.eoi_off[int(fix_eoi), S]
+                        + tabs.eoi_w[int(fix_eoi), S]),
     }
 
 
@@ -227,100 +318,106 @@ def pack_variable(dense: torch.Tensor, counts: torch.Tensor, spec: LzwSpec,
     return out[:, :PB].to(torch.uint8), lengths.to(torch.int32)
 
 
+# A symbol's three bytes and their weights in its 24-bit window, by order.
+_LANES = np.arange(3)
+_WEIGHTS = {True: np.array([1, 1 << 8, 1 << 16]),
+            False: np.array([1 << 16, 1 << 8, 1])}
+
+
+def _read_symbols(payloads, rows, bit_off, width, little: bool):
+    """Symbols of ``width`` bits at bit offsets ``bit_off`` of the rows
+    ``rows`` of the u8 matrix ``payloads`` (the three broadcast together),
+    bytes past the matrix's width reading 0: one gather of three bytes."""
+    PB = payloads.shape[1]
+    at = (np.asarray(bit_off) >> 3)[..., None] + _LANES
+    rows = np.asarray(rows)[..., None]
+    if PB:
+        window = payloads[rows, np.minimum(at, PB - 1)] * (at < PB)
+    else:
+        window = np.zeros(np.broadcast(rows, at).shape, np.uint8)
+    word = window.astype(np.int64) @ _WEIGHTS[little]
+    sh = bit_off & 7 if little else 24 - (bit_off & 7) - width
+    return (word >> sh) & ((1 << width) - 1)
+
+
 def recover_counts(payloads, plens, spec: LzwSpec):
     """Host-side stream-length recovery + frame-level strictness checks.
 
     Candidates for a stream's data-code count n are every n whose wire byte
-    length matches; ambiguity (possible at small code sizes where several
-    3-bit codes share a byte) is resolved by checking the trailing EOI.
-    Streams are grouped by byte length so the candidate sets are shared.
+    length, under either EOI width rule, matches; ambiguity (possible at
+    small code sizes where several 3-bit codes share a byte) is resolved by
+    checking the trailing EOI.  The byte lengths never fall in n, so each
+    rule's candidates for a row are a range, found by search.  A row tries
+    its candidates from the largest n down, the fixed-width EOI rule first
+    on a tie, and keeps the first whose EOI reads as one: one gather a
+    candidate rank, over the rows still open.
 
     Returns (counts i64[N], strict bool[N], S).  ``strict`` here covers the
     checks that need only a handful of byte reads per stream (byte-length /
     EOI match, leading CLEAR, mid-stream CLEARs); the per-data-slot
     CLEAR/EOI check lives with the unpack.
 
-    Counts ``recover.blocks`` (the N rows) and ``recover.reads`` (the rows
-    the candidates' EOI reads read: every row, a read) in
+    Counts ``recover.blocks`` (the N rows) and ``recover.reads`` (the EOI
+    symbols read: one for each candidate each row tries) in
     :mod:`lzw_tpu_torch.utils.spans`.
     """
     if not spec.variable:
         raise ValueError("recover_counts takes a variable-width spec")
+    payloads = np.asarray(payloads)
     N, PB = payloads.shape
     spans.count("recover.blocks", N)
     # Upper bound on data codes: every code at the minimum width.
     S = int((8 * PB) // spec.initial_width + 2)
-    sched = emission_schedule(spec, S)
+    tabs = _tables(spec, S)
     little = spec.endianness.value == "little"
-
-    with spans.span("recover.pad"):
-        # int32 suffices: reads combine <= 3 bytes (< 2^24) before shifting.
-        padded = np.zeros((N, PB + 4), np.int32)
-        padded[:, :PB] = payloads
-
-    def read_cols(bit_offs, widths):
-        """Read one symbol per (stream, position): bit_offs/widths (M,)."""
-        bit_offs = np.asarray(bit_offs, np.int64)
-        widths = np.asarray(widths, np.int64)
-        b0 = bit_offs >> 3
-        if little:
-            w0 = (padded[:, b0] | (padded[:, b0 + 1] << 8)
-                  | (padded[:, b0 + 2] << 16))
-            return (w0 >> (bit_offs & 7)) & ((1 << widths) - 1)
-        wbe = ((padded[:, b0] << 16) | (padded[:, b0 + 1] << 8)
-               | padded[:, b0 + 2])
-        return (wbe >> (24 - (bit_offs & 7) - widths)) & ((1 << widths) - 1)
-
-    counts = np.zeros(N, np.int64)
-    chosen = np.zeros(N, bool)
-    strict = np.ones(N, bool)
     plens = np.asarray(plens, np.int64)
-    reads = 0
+    counts = np.zeros(N, np.int64)
+    found = plens == 0  # n = 0
+
     with spans.span("recover.candidates"):
-        totals = sched.eoi_tables(True)[2]
-        totals_nofix = sched.eoi_tables(False)[2]
-        byte_len = (totals + 7) // 8
-        byte_len_nofix = (totals_nofix + 7) // 8
-        chosen |= plens == 0  # n = 0
-        for nbytes in np.unique(plens[~chosen]) if (~chosen).any() else []:
-            rows = np.nonzero(plens == nbytes)[0]
-            cands = np.nonzero(
-                (byte_len == nbytes) | (byte_len_nofix == nbytes)
-            )[0]
-            for n in cands[::-1]:
-                n = int(n)
-                todo = rows[~chosen[rows]]
-                if todo.size == 0:
-                    break
-                for fix in (True, False):
-                    if (sched.total_bits(n, fix) + 7) // 8 != nbytes:
-                        continue
-                    off = sched.total_bits(n, fix) - sched.eoi_width(n, fix)
-                    w = sched.eoi_width(n, fix)
-                    if (off >> 3) + 2 >= padded.shape[1]:
-                        continue
-                    v = read_cols([off], [w])[todo, 0]
-                    reads += N
-                    hit = todo[v == spec.end_code]
-                    counts[hit] = n
-                    chosen[hit] = True
+        row = np.nonzero(~found)[0]
+        # Per EOI rule (0: the last code's width, 1: the decoder's), the
+        # row's candidates lo..head, tried from head down.
+        nb = tabs.nbytes[:, : S + 1]
+        lo = np.stack([np.searchsorted(t, plens[row], "left") for t in nb])
+        head = np.stack([np.searchsorted(t, plens[row], "right")
+                         for t in nb]) - 1
+        keep = (head >= lo).any(axis=0)
+        reads = 0
+        while keep.any():
+            row, lo, head = row[keep], lo[:, keep], head[:, keep]
+            has = head >= lo
+            rule = (has[1] & (~has[0] | (head[1] >= head[0]))).astype(np.intp)
+            at = np.arange(row.size)
+            n = head[rule, at]
+            head[rule, at] -= 1
+            off, w = tabs.eoi_off[rule, n], tabs.eoi_w[rule, n]
+            # A candidate whose three-byte window ends past the width plus
+            # 4 is not read, as in the JAX package (its copy pads by 4).
+            ok = (off >> 3) + 2 < PB + 4
+            hit = np.zeros(row.size, bool)
+            hit[ok] = _read_symbols(payloads, row[ok], off[ok], w[ok],
+                                    little) == spec.end_code
+            reads += int(ok.sum())
+            counts[row[hit]] = n[hit]
+            found[row[hit]] = True
+            keep = ~hit & (head >= lo).any(axis=0)
     spans.count("recover.reads", reads)
-    strict &= chosen
-    counts[~chosen] = 0
+    strict = found
     max_n = int(counts.max()) if N else 0
 
     with spans.span("recover.strict"):
+        rows = np.arange(N)
         # Validate the leading CLEAR.
-        lead = read_cols([0], [spec.initial_width])[:, 0]
+        lead = _read_symbols(payloads, rows, 0, spec.initial_width, little)
         strict &= (lead == spec.clear_code) | (plens == 0)
-
-        # Mid-stream CLEARs (a handful of positions).
-        for m in np.nonzero(sched.clear_after[:max_n])[0]:
-            cvals = read_cols(
-                [int(sched.bit_off[m] + sched.widths[m])], [MAX_WIDTH]
-            )[:, 0]
-            mid = (m + 1) < counts
-            strict &= ~mid | (cvals == spec.clear_code)
+        # Mid-stream CLEARs, where a data code follows: rows x positions.
+        k = int(np.searchsorted(tabs.clear_m, max_n))
+        if k:
+            vals = _read_symbols(payloads, rows[:, None], tabs.clear_off[:k],
+                                 MAX_WIDTH, little)
+            mid = tabs.clear_m[:k] + 1 < counts[:, None]
+            strict &= (~mid | (vals == spec.clear_code)).all(axis=1)
 
     return counts, strict, S
 

@@ -29,8 +29,8 @@ The spans of a codec call (none per block, candidate or byte):
   host steps that only a profiler sees (``enc_errors``, ``enc_payloads``,
   ``enc_verify``, ``pack_frame``, ``parse_frame``, ``dec_errors``,
   ``dec_strict``, ``dec_native``, ``dec_join``, and inside
-  ``dec_count_recovery`` ``recover.pad``, ``recover.candidates``,
-  ``recover.strict`` and ``recover.schedule_rows``).
+  ``dec_count_recovery`` ``recover.candidates``, ``recover.strict`` and
+  ``recover.schedule_rows``).
 
 Counters (:func:`count`) tick in :data:`COUNTS` with or without a profiler.
 While a profiler records, :data:`PROFILED` also gathers each counter's

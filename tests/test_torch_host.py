@@ -111,6 +111,150 @@ def test_unpack_flags_control_codes_in_data_slots():
     assert ok.tolist() == [False, True]
 
 
+DAMAGED = ["intact", "flip_byte", "cut", "flip_last", "bad_lead", "bad_mid",
+           "empty_row", "mixed", "shared_length"]
+
+
+def _write_symbol(row, off, width, value, little):
+    """Overwrite the ``width``-bit symbol at bit ``off`` of a u8 row."""
+    for i in range(width):
+        pos = off + i
+        bit = (value >> (i if little else width - 1 - i)) & 1
+        mask = 1 << (pos & 7) if little else 0x80 >> (pos & 7)
+        row[pos >> 3] = (int(row[pos >> 3]) & ~mask & 0xFF) | (mask * bit)
+
+
+def _damaged_batch(ref, case, fix, rng):
+    """(payloads u8[N, PB], plens) of streams packed by the JAX package,
+    then damaged as ``case`` says."""
+    spec = _port(ref)
+    little = spec.endianness.value == "little"
+    n_rows = 6
+    dense, counts = _random_dense(spec, n_rows, 9000, rng.integers(1 << 30))
+    if case in ("mixed", "shared_length"):
+        # Short streams beside long ones: at code size 2 several counts
+        # share a byte length, and the EOI read picks among them.
+        counts[2:] = rng.integers(0, 40, n_rows - 2)
+    pay, plens = jsched.pack_variable(dense, counts, ref, fix_eoi=fix)
+    pay, plens = pay.copy(), plens.astype(np.int64)
+    sched = tsched.Schedule(spec, 9001)
+    period = int(np.nonzero(sched.clear_after)[0][0]) + 1
+    rows = range(1, n_rows)
+    if case == "flip_byte":
+        for i in rows:
+            pay[i, rng.integers(plens[i])] ^= 1 << rng.integers(8)
+    elif case == "cut":
+        for i in rows:
+            cut = 1 + i % 3
+            pay[i, plens[i] - cut:] = 0
+            plens[i] -= cut
+    elif case == "flip_last":
+        for i in rows:
+            pay[i, plens[i] - 1] ^= 0xFF
+    elif case == "bad_lead":
+        for i in rows[::2]:
+            _write_symbol(pay[i], 0, spec.initial_width, spec.clear_code ^ 1,
+                          little)
+    elif case == "bad_mid":
+        # The CLEAR after the first epoch, in the rows that have one.
+        m = period - 1
+        off = int(sched.bit_off[m] + sched.widths[m])
+        hit = [i for i in range(n_rows) if counts[i] > period]
+        assert hit
+        for i in hit:
+            _write_symbol(pay[i], off, 12, spec.end_code, little)
+    elif case == "empty_row":
+        pay[[0, 3]] = 0
+        plens[[0, 3]] = 0
+    elif case == "shared_length":
+        # Write an EOI where every other count of the same byte length
+        # would end, so that several candidates read one and their order
+        # decides; in odd rows break the stream's own EOI as well.
+        _, _, total = sched.eoi_tables(fix)
+        nbytes = (total + 7) // 8
+        shared = 0
+        for i in range(2, n_rows):
+            n = int(counts[i])
+            others = [int(k) for k in np.nonzero(nbytes == nbytes[n])[0]
+                      if k != n]
+            shared += bool(others)
+            for k, value in [(k, spec.end_code) for k in others] + (
+                    [(n, 0)] if i % 2 else []):
+                w = sched.eoi_width(k, fix)
+                _write_symbol(pay[i], int(total[k] - w), w, value, little)
+        if ref.code_size == 2:
+            assert shared
+    return pay, plens
+
+
+@pytest.mark.parametrize("fix", [True, False], ids=["fix_eoi", "no_fix"])
+@pytest.mark.parametrize("case", DAMAGED)
+@pytest.mark.parametrize("name", ["gif2", "gif7", "gif8", "tiff", "var4be"])
+def test_recover_counts_on_damaged_streams(name, case, fix):
+    ref = REF_SPECS[name]
+    rng = np.random.default_rng([len(name), DAMAGED.index(case), fix])
+    pay, plens = _damaged_batch(ref, case, fix, rng)
+    # The whole matrix, then the same cut narrower than its longest row.
+    for cut, mat in enumerate((pay, pay[:, : pay.shape[1] // 2 + 1])):
+        lens = np.minimum(plens, mat.shape[1])
+        c_ref, strict_ref, S_ref = jsched.recover_counts(mat, lens, ref)
+        c, strict, S = tsched.recover_counts(mat, lens, _port(ref))
+        np.testing.assert_array_equal(c, c_ref)
+        np.testing.assert_array_equal(strict, strict_ref)
+        assert S == S_ref
+        if case == "intact" and not cut:
+            assert strict.all()
+
+
+@pytest.mark.parametrize("name", ["gif2", "gif7", "gif8", "tiff", "var4be"])
+def test_schedule_tables_are_prefix_consistent(name):
+    ref = REF_SPECS[name]
+    spec = _port(ref)
+    period = int(np.nonzero(tsched.Schedule(spec, 9000).clear_after)[0][0]) + 1
+    sizes = {0, 1, 2, 3, 5}
+    for edge in (64, 4096, 8192, period, 2 * period):
+        sizes |= {edge - 1, edge, edge + 1}
+    for S in sorted(sizes):
+        fresh = tsched.Schedule(spec, S)
+        sliced = tsched.emission_schedule(spec, S)
+        assert sliced.n_max == S
+        for field in ("widths", "clear_after", "nxt_of", "epoch_start",
+                      "bit_off", "next_width"):
+            np.testing.assert_array_equal(getattr(sliced, field),
+                                          getattr(fresh, field),
+                                          err_msg=f"{field} at {S}")
+        tabs = tsched._tables(spec, S)
+        assert tabs.sched.n_max >= S
+        for rule, fix in enumerate((False, True)):
+            off, w, total = fresh.eoi_tables(fix)
+            np.testing.assert_array_equal(tabs.eoi_off[rule, : S + 1], off)
+            np.testing.assert_array_equal(tabs.eoi_w[rule, : S + 1], w)
+            np.testing.assert_array_equal(tabs.nbytes[rule, : S + 1],
+                                          (total + 7) // 8)
+            dev = tsched._device_tables(spec, S, fix, torch.device("cpu"))
+            np.testing.assert_array_equal(dev["eoi_off"].numpy(), off)
+            np.testing.assert_array_equal(dev["eoi_w"].numpy(), w)
+            assert dev["max_bits"] == total[S]
+        clear_m = np.nonzero(fresh.clear_after)[0]
+        k = np.searchsorted(tabs.clear_m, S)
+        np.testing.assert_array_equal(tabs.clear_m[:k], clear_m)
+        np.testing.assert_array_equal(
+            tabs.clear_off[:k], fresh.bit_off[clear_m] + fresh.widths[clear_m])
+        np.testing.assert_array_equal(dev["clear_m"].numpy(), clear_m)
+        np.testing.assert_array_equal(dev["bit_off"].numpy(),
+                                      fresh.bit_off[:S])
+        np.testing.assert_array_equal(
+            tsched.schedule_rows(spec, S),
+            np.stack([fresh.nxt_of - 1, fresh.epoch_start]).astype(np.int32))
+        # The byte lengths never fall, over the whole cached table.
+        assert (np.diff(tabs.nbytes, axis=1) >= 0).all()
+    # The reference's schedule at one size on each side of the period.
+    for S in (period - 1, period + 1):
+        a, b = jsched.Schedule(ref, S), tsched.emission_schedule(spec, S)
+        for field in ("widths", "clear_after", "bit_off", "next_width"):
+            np.testing.assert_array_equal(getattr(b, field), getattr(a, field))
+
+
 @pytest.mark.parametrize("name", list(REF_SPECS))
 def test_frames_and_streams_byte_identical(name):
     ref = REF_SPECS[name]

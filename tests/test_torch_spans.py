@@ -5,7 +5,7 @@ the ``"torch"`` facades is a host range ``lzw.encode`` / ``lzw.decode``
 whose args hold its call id, with its steps as stage spans inside it;
 with no profiler no range is opened at all.  The stage timer behind
 ``stage_times`` keeps its keys on every route, and count recovery counts
-the rows it reads.
+the EOI symbols it reads.
 """
 
 import collections
@@ -98,7 +98,7 @@ def test_stage_spans_nest_in_their_call(tmp_path, name):
         "enc_host_prep", "enc_h2d", "enc_kernel", "enc_errors",
         "enc_pack", "enc_d2h", "enc_payloads", "enc_verify", "pack_frame"}
     recover = {"dec_count_recovery", "dec_unpack", "dec_strict",
-               "recover.pad", "recover.candidates", "recover.strict",
+               "recover.candidates", "recover.strict",
                "recover.schedule_rows"}
     assert names["lzw.decode"] == {
         "parse_frame", "dec_host_prep", "dec_h2d", "dec_pass1",
@@ -322,18 +322,24 @@ def test_recover_counters_on_crafted_streams():
 
     one = reference.encode_bytes(b"\x01", spec)
     # CLEAR, one data code and EOI, 8 bits each: 3 bytes fit one count
-    # only, and its EOI is read once for each EOI width rule.
+    # only, and its EOI reads as one under the first rule tried.
     assert len(one) == 3
-    assert recover([one]) == {"recover.blocks": 1, "recover.reads": 2}
-    # Each read reads every row of the batch: four equal streams, one
-    # length, two reads of four rows.
-    assert recover([one] * 4) == {"recover.blocks": 4, "recover.reads": 8}
+    assert recover([one]) == {"recover.blocks": 1, "recover.reads": 1}
+    # One read for each row and candidate it tries: four equal streams,
+    # four reads.
+    assert recover([one] * 4) == {"recover.blocks": 4, "recover.reads": 4}
     longer = [reference.encode_bytes(bytes(range(1, 2 + k)), spec)
               for k in range(3)]
     assert len({len(p) for p in longer}) == 3
     alone = sum(recover([p])["recover.reads"] for p in longer)
-    assert recover(longer) == {"recover.blocks": 3,
-                               "recover.reads": 3 * alone}
+    assert recover(longer) == {"recover.blocks": 3, "recover.reads": alone}
+    # A stream whose EOI is gone tries every candidate of its length, both
+    # rules, and finds none.
+    broken = one[:2] + b"\x00"
+    tries = recover([broken])["recover.reads"]
+    assert tries == 2
+    assert recover([broken, one]) == {"recover.blocks": 2,
+                                      "recover.reads": tries + 1}
     # While a profiler records, the ticks also go to its tally, beside the
     # seconds of count recovery's spans.
     with profile(activities=[ProfilerActivity.CPU]):
@@ -341,9 +347,8 @@ def test_recover_counters_on_crafted_streams():
     tally = spans.PROFILED.snapshot()
     assert {k: v for k, v in tally.items()
             if not k.startswith(spans.PREFIX)} == {"recover.blocks": 1,
-                                                   "recover.reads": 2}
-    assert set(tally) > {"lzw.recover.pad", "lzw.recover.candidates",
-                         "lzw.recover.strict"}
+                                                   "recover.reads": 1}
+    assert set(tally) > {"lzw.recover.candidates", "lzw.recover.strict"}
 
 
 def test_torch_facade_spans(tmp_path):
