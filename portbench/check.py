@@ -4,7 +4,10 @@ Every call of the window is held to the reference, byte for byte:
 
 * an encode's container against the reference's container of the same
   input (:mod:`portbench.reference`): header, length table and every
-  block's payload;
+  block's payload; for a configuration whose entry is the single-stream
+  facade (``"entry": "facade"``), its stream against the reference's
+  stream of the input (:func:`portbench.reference.lzw.encode_stream`,
+  salzweg's bytes);
 * a decode's bytes against the input the benchmark made, which the
   decode of a sound container returns.
 
@@ -17,8 +20,8 @@ reference work.
 The numbers compared, each with its limit (exact comparisons, limit 0):
 
 * ``container_bytes_wrong``: over every encode call, the bytes of its
-  container that differ from the reference's, and the difference in
-  length;
+  container (a facade's: of its stream) that differ from the
+  reference's, and the difference in length;
 * ``output_bytes_wrong``: the same over every decode call, against the
   input;
 * ``calls_failed``: calls that raised.
@@ -31,6 +34,7 @@ import dataclasses
 import numpy as np
 
 from portbench.reference import container as ref_container
+from portbench.reference import lzw
 from portbench.reference.lzw import Wire
 
 LIMITS = {"container_bytes_wrong": 0, "output_bytes_wrong": 0,
@@ -53,12 +57,27 @@ def bytes_wrong(got: bytes, want: bytes) -> int:
 
 @dataclasses.dataclass
 class Expected:
-    """The reference's container of one input and its sizes."""
+    """The reference's container of one input and its sizes; a facade's
+    is one stream, its only block."""
 
     container: bytes
     payload_bytes: int
     codes: int
     blocks: int
+
+
+def expected_streams(inputs, wire: Wire, executor=None) -> list[Expected]:
+    """A facade's: the reference's one stream of each input, salzweg's
+    bytes, one input a job."""
+    datas = [x.data for x in inputs]
+    return list((map if executor is None else executor.map)(
+        _stream, datas, [wire] * len(datas)))
+
+
+def _stream(data: bytes, wire: Wire) -> Expected:
+    codes = lzw.parse_stream(data, wire)
+    stream = lzw.pack_stream(codes, wire)
+    return Expected(stream, len(stream), len(codes), 1)
 
 
 def expected(inputs, wire: Wire, block_size: int, executor=None,

@@ -6,7 +6,10 @@ every block is encoded without its last code, the prefix left when the
 block's input ends (``portbench.reference.lzw.parse(flush=False)``), the
 step a parallel encoder most easily loses.  Its containers are
 well-formed and decode, short of each block's last word, so the
-comparison has to find the lost bytes.
+comparison has to find the lost bytes.  For a facade configuration the
+control is the reference's one stream without its last code
+(``portbench.reference.lzw.encode_stream(flush=False)``), with its EOI,
+decoded by the lockstep decoder on its one stream.
 
     python3 portbench/control.py --workload <cell> --seed <n> [--seed <n> ...]
 
@@ -26,27 +29,33 @@ import pathlib
 import sys
 import time
 
+import numpy as np
+
 if __name__ == "__main__":
     sys.path[0] = str(pathlib.Path(__file__).resolve().parents[1])
 
 from portbench import check, harness  # noqa: E402
-from portbench.reference import container  # noqa: E402
+from portbench.reference import container, lzw  # noqa: E402
 from portbench.reference.lzw import Wire  # noqa: E402
 
 
 class ReferenceCodec:
-    """The reference as a container codec: ``flush=False`` is the control,
-    ``True`` the reference itself, sound."""
+    """The reference as the configuration's codec, a container or one
+    stream (a facade): ``flush=False`` is the control, ``True`` the
+    reference itself, sound."""
 
     def __init__(self, config: dict, flush: bool = True, executor=None,
                  shards: int = 1):
         self.wire = Wire.from_dict(config["wire"])
-        self.block_size = int(config["block_size"])
+        self.facade = harness.entry(config) == "facade"
+        self.block_size = harness.block_size(config)
         self.flush = flush
         self.executor = executor
         self.shards = shards
 
     def encode(self, data: bytes) -> bytes:
+        if self.facade:
+            return lzw.encode_stream(data, self.wire, flush=self.flush)
         (payload, lengths, _), = container.encode_many(
             [data], self.wire, self.block_size, self.flush, self.executor,
             self.shards)
@@ -54,6 +63,9 @@ class ReferenceCodec:
                                   payload, lengths)
 
     def decode(self, data: bytes) -> bytes:
+        if self.facade:
+            return lzw.decode(np.frombuffer(data, np.uint8), [len(data)],
+                              self.wire).tobytes()
         return container.decode(data, self.executor, self.shards)
 
 

@@ -9,6 +9,15 @@ traffic mix (``portbench/traffic/<mix>.json``, read by
 ``portbench/metrics/<metric>.py`` whose ``read(run)`` returns a number,
 or None where it finds nothing to read.
 
+A configuration's ``"entry"`` names the program's entry point:
+``"container"`` (the default), the block container
+``lzw_tpu_torch.BlockParallelCodec`` over the configuration's
+``block_size``; or ``"facade"``, the single-stream codec
+``lzw_tpu_torch.api.LzwCodec`` with the ``backend`` of its ``codec``,
+which has no ``block_size``, runs on one device, takes ``"call"``
+windows only, and has no stage timer (the staged half of a traced window
+runs it unstaged).
+
 A run:
 
 1. set-up: the configuration's corpus, the mix's inputs from ``--seed``
@@ -20,8 +29,9 @@ A run:
    1`` the first half of the window runs with the codec's ``stage_times``
    and the second half under ``torch.profiler``;
 3. the peak device memory, then the program's state freed;
-4. the reference's containers (:mod:`portbench.check`), on a pool of
-   worker processes that import nothing but NumPy and the reference;
+4. the reference's containers, a facade's streams (:mod:`portbench.check`),
+   on a pool of worker processes that import nothing but NumPy and the
+   reference;
 5. every process the run started ended and waited for
    (:func:`end_children`);
 6. one JSON line on standard output, the numbers compared and their
@@ -60,6 +70,7 @@ OPS = ("encode", "decode")
 # Top-level modules the process may not hold once the window has closed.
 FORBIDDEN = ("jax", "jaxlib", "flax", "lzw_tpu")
 WORKERS = 8
+ENTRIES = ("container", "facade")
 
 
 @dataclasses.dataclass
@@ -112,7 +123,27 @@ def load_cell(bench: dict, name: str) -> Cell:
     configs = {c["name"]: c for c in bench["configs"]}
     config = json.loads((ROOT / configs[w["config"]]["file"]).read_text())
     mix = generator.load_mix(HERE / "traffic" / f"{w['traffic']}.json")
+    kind = entry(config)
+    if kind not in ENTRIES:
+        raise ValueError(f"{w['config']}: entry {kind!r} is not one of "
+                         f"{ENTRIES}")
+    if kind == "facade" and int(w["chips"]) != 1:
+        raise ValueError(f"{name}: a facade runs on one device, not "
+                         f"{w['chips']}")
+    if kind == "facade" and mix["window"] != "call":
+        raise ValueError(f"{name}: a facade has no block_size for "
+                         f"{mix['window']!r} windows")
     return Cell(name, int(w["chips"]), config, mix)
+
+
+def entry(config: dict) -> str:
+    """The configuration's entry point: ``"container"`` or ``"facade"``."""
+    return config.get("entry", "container")
+
+
+def block_size(config: dict) -> int | None:
+    """The container's block size; None for a facade, which has none."""
+    return None if entry(config) == "facade" else int(config["block_size"])
 
 
 def metric_entries(bench: dict, cell: str, trace: bool) -> list[dict]:
@@ -142,22 +173,31 @@ def load_reader(name: str):
     return module
 
 
-def make_program_codec(config: dict, devices, stage_times=None):
-    """The program's container codec for a configuration."""
-    from lzw_tpu_torch import BlockParallelCodec
+def program_spec(wire: dict):
+    """The program's ``LzwSpec`` of a configuration's ``wire``."""
     from lzw_tpu_torch.spec import CodeSizeStrategy, Endianness, LzwSpec
 
-    wire = config["wire"]
     endian = Endianness(wire.get("endianness", "little"))
     if wire["flavor"] == "variable":
         strategy = (CodeSizeStrategy.TIFF if wire.get("strategy") == "tiff"
                     else CodeSizeStrategy.DEFAULT)
-        spec = LzwSpec.variable(int(wire["code_size"]), endian, strategy)
-    else:
-        spec = LzwSpec.fixed(endian)
+        return LzwSpec.variable(int(wire["code_size"]), endian, strategy)
+    return LzwSpec.fixed(endian)
+
+
+def make_program_codec(config: dict, devices, stage_times=None):
+    """The program's codec for a configuration: its container, or its
+    single-stream facade on the first device (``stage_times`` unused)."""
+    spec = program_spec(config["wire"])
     codec = config.get("codec", {})
+    if entry(config) == "facade":
+        from lzw_tpu_torch.api import LzwCodec
+
+        return LzwCodec(spec, codec["backend"], device=devices[0])
+    from lzw_tpu_torch import BlockParallelCodec
+
     return BlockParallelCodec(
-        spec, int(config["block_size"]),
+        spec, block_size(config),
         device=devices[0] if len(devices) == 1 else list(devices),
         verify=codec.get("verify"), pass2=codec.get("pass2", "auto"),
         stage_times=stage_times)
@@ -320,13 +360,14 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, devices,
     import torch
 
     wire = Wire.from_dict(cell.config["wire"])
-    block_size = int(cell.config["block_size"])
+    size = block_size(cell.config)
     plane = load_plane(ROOT / cell.config["corpus"])
-    inputs = generator.make_inputs(cell.mix, plane, block_size, seed)
+    inputs = generator.make_inputs(cell.mix, plane, size, seed)
     callers = int(cell.mix["callers"])
     want = None
     if generator.needs_containers(cell.mix):
-        want = _expected(inputs, wire, block_size, workers)
+        want = _expected(inputs, wire, size, workers,
+                         entry(cell.config))
     codecs = [make_codec(cell.config, devices) for _ in range(callers)]
     tally = check.Tally(len(inputs))
     calls: list[Call] = []
@@ -355,7 +396,8 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, devices,
         torch.cuda.empty_cache()
     t_ref = time.perf_counter()
     if want is None:
-        want = _expected(inputs, wire, block_size, workers)
+        want = _expected(inputs, wire, size, workers,
+                         entry(cell.config))
     numbers = tally.numbers(want)
     reference_s = time.perf_counter() - t_ref
     run = Run(cell, seed, trace, setup_s, calls, want, profile)
@@ -400,14 +442,21 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, devices,
     return result, numbers
 
 
-def _expected(inputs, wire, block_size: int, workers: int):
-    """The reference's containers, on ``workers`` processes that import
-    nothing but NumPy and the reference."""
+def _expected(inputs, wire, block_size: int | None, workers: int,
+              kind: str = "container"):
+    """The reference's containers (a facade's streams, ``kind``
+    ``"facade"``), on ``workers`` processes that import nothing but NumPy
+    and the reference."""
+    def want(ex=None, shards=1):
+        if kind == "facade":
+            return check.expected_streams(inputs, wire, ex)
+        return check.expected(inputs, wire, block_size, ex, shards)
+
     if workers <= 1:
-        return check.expected(inputs, wire, block_size)
+        return want()
     with concurrent.futures.ProcessPoolExecutor(
             workers, mp_context=multiprocessing.get_context("spawn")) as ex:
-        return check.expected(inputs, wire, block_size, ex, workers)
+        return want(ex, workers)
 
 
 def _children() -> list[int]:

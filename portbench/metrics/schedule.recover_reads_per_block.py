@@ -1,8 +1,7 @@
-"""Rows count recovery's candidate loop read (``recover.reads``) over the
-rows it was given (``recover.blocks``), in the profiled calls: 1.0 would
-be one EOI read a block; each candidate's read reads every row of the
-batch.  Nothing to read where a flavor has no count recovery (fixed
-12-bit)."""
+"""Rows count recovery read (``recover.reads``) over the rows it was given
+(``recover.blocks``), in the profiled calls: one read a row for each
+candidate the row tries, so 1.0 is one EOI read a block.  Nothing to read
+where a flavor has no count recovery (fixed 12-bit)."""
 
 from portbench import spans
 

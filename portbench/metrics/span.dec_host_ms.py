@@ -1,6 +1,7 @@
-"""Container host work of a decode, from the program's spans:
-``parse_frame``, the payload matrix (``dec_host_prep``) and the error
-reads (``dec_errors``), ms a profiled call."""
+"""Host work of a decode, from the program's spans, ms a profiled call:
+the container's ``parse_frame``, payload matrix (``dec_host_prep``) and
+error reads (``dec_errors``); the facade's stream staging
+(``dec_host_prep``) and error read (``dec_errors``, ``api``)."""
 
 from portbench import spans
 

@@ -1,7 +1,8 @@
-"""Container host work of an encode, from the program's spans: the block
-rows' build (``enc_host_prep``), the payload slices (``enc_payloads``),
-the host decode of the verify sample (``enc_verify``) and ``pack_frame``,
-ms a profiled call."""
+"""Host work of an encode, from the program's spans, ms a profiled call:
+the container's block rows' build (``enc_host_prep``), payload slices
+(``enc_payloads``), host decode of the verify sample (``enc_verify``) and
+``pack_frame``; the facade's input staging (``enc_host_prep``,
+``ops.encode``)."""
 
 from portbench import spans
 

@@ -4,7 +4,9 @@ The benchmark's reference: written from the formats (``SURVEY.md`` §3;
 salzweg's ``encoder.rs`` and ``decoder.rs``), importing nothing of the
 program.  Many independent streams (the container's blocks) advance in
 lockstep, one input byte (encode) or one code (decode) a step, so a step
-is a few NumPy operations over every stream at once.
+is a few NumPy operations over every stream at once.  A single stream
+(the facade's) is parsed by a dictionary instead (:func:`parse_stream`),
+which the tests hold equal to the lockstep parse of one row.
 
 Formats:
 
@@ -321,15 +323,52 @@ def pack(codes: np.ndarray, counts: np.ndarray, wire: Wire,
     return payload, lengths
 
 
-def encode_stream(data: bytes, wire: Wire, fix_eoi: bool = False) -> bytes:
-    """One stream, salzweg's bytes by default (``fix_eoi=False``)."""
-    rows = np.frombuffer(data, np.uint8)[None, :]
+def parse_stream(data: bytes, wire: Wire, *, flush: bool = True) -> np.ndarray:
+    """The data codes of one stream of ``data``, u16, as :func:`parse`
+    gives them for one row (``flush`` as there).  One stream has no
+    lanes to advance together, so a Python dictionary keyed by (prefix,
+    byte) takes a byte here in a fraction of a lockstep step."""
     if not data:
-        codes, counts = np.zeros((1, 0), np.uint16), np.zeros(1, np.int64)
-    else:
-        codes, counts = parse(rows, wire)
-    payload, _ = pack(codes, counts, wire, fix_eoi)
+        return np.zeros(0, np.uint16)
+    if wire.alphabet < 256 and (np.frombuffer(data, np.uint8)[1:]
+                                >= wire.alphabet).any():
+        raise ValueError("a byte past the alphabet after a stream's first")
+    # The index at which a variable stream resets, or a fixed one freezes.
+    full = wire.threshold(MAX_WIDTH) if wire.variable else TABLE
+    table: dict[int, int] = {}
+    codes: list[int] = []
+    nxt = wire.first_free
+    prefix = data[0]
+    for byte in data[1:]:
+        key = prefix << 8 | byte
+        code = table.get(key)
+        if code is not None:
+            prefix = code
+            continue
+        codes.append(prefix)
+        if nxt < full:
+            table[key] = nxt
+            nxt += 1
+        elif wire.variable:
+            table.clear()
+            nxt = wire.first_free
+        prefix = byte
+    codes.append(prefix)
+    if not flush:
+        codes.pop()
+    return np.asarray(codes, np.uint16)
+
+
+def pack_stream(codes: np.ndarray, wire: Wire, fix_eoi: bool = False) -> bytes:
+    """The bytes of one stream of data codes (:func:`pack` of one row)."""
+    payload, _ = pack(codes[None, :], np.array([len(codes)]), wire, fix_eoi)
     return payload.tobytes()
+
+
+def encode_stream(data: bytes, wire: Wire, fix_eoi: bool = False, *,
+                  flush: bool = True) -> bytes:
+    """One stream, salzweg's bytes by default (``fix_eoi=False``)."""
+    return pack_stream(parse_stream(data, wire, flush=flush), wire, fix_eoi)
 
 
 # --------------------------------------------------------------------------- #

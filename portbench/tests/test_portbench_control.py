@@ -6,8 +6,8 @@ hold), with the codec in the program's place:
 
 * the reference, sound: ``correct`` true;
 * the program on the CPU (its kernels' plain versions): true;
-* the control, the reference with each block's last code left out:
-  false;
+* the control, the reference with each block's (a facade's stream's)
+  last code left out: false;
 * the program with one fault planted under it, once for each fault the
   cells can have: a call that returns its input unchanged, half of the
   blocks left out, one byte altered where it is produced (one chip, so
@@ -32,18 +32,21 @@ from portbench.control import ReferenceCodec
 CELLS = {"gif7-image-bulk": ("gif7-image", "bulk"),
          "fixed12-image-bulk": ("fixed12-image", "bulk"),
          "gif7-image-one": ("gif7-image", "one-image"),
-         "fixed12-image-one": ("fixed12-image", "one-image")}
+         "fixed12-image-one": ("fixed12-image", "one-image"),
+         "gif7-image-facade": ("gif7-facade", "one-image")}
 
 
 def _cell(name: str) -> harness.Cell:
     """The configuration and mix as their files give them, cut to a
-    test's size: 4 KiB blocks, a few blocks a call."""
+    test's size: 4 KiB blocks (a container's), a few blocks' bytes a
+    call."""
     config, traffic = CELLS[name]
     cell = harness.Cell(
         name, 1,
         json.loads((harness.HERE / "configs" / f"{config}.json").read_text()),
         generator.load_mix(harness.HERE / "traffic" / f"{traffic}.json"))
-    cell.config["block_size"] = 4096
+    if harness.entry(cell.config) == "container":
+        cell.config["block_size"] = 4096
     cell.mix["bytes_per_call"] = 3 * 4096 if cell.mix["window"] == \
         "block" else 3 * 4096 + 1000
     cell.mix["inputs"] = 2
@@ -74,10 +77,13 @@ def test_the_reference_in_the_programs_place_is_correct(name):
     assert list(result)[-1] == "checks"
 
 
-@pytest.mark.parametrize("name", ("gif7-image-one", "fixed12-image-bulk"))
+@pytest.mark.parametrize("name", ("gif7-image-one", "fixed12-image-bulk",
+                                  "gif7-image-facade"))
 def test_the_program_on_the_cpu_is_correct(name):
     result, numbers = _run(_cell(name), harness.make_program_codec)
     assert result["correct"], numbers
+    assert numbers == {"container_bytes_wrong": 0, "output_bytes_wrong": 0,
+                       "calls_failed": 0}
 
 
 @pytest.mark.parametrize("name", CELLS)
@@ -100,6 +106,9 @@ def _frame(data: bytes):
 
 
 def _half(data: bytes) -> bytes:
+    """Half of a container's blocks, or half of a facade's stream."""
+    if data[:4] != b"LZWT":
+        return data[: len(data) // 2]
     head, payloads = _frame(data)
     keep = payloads[: len(payloads) // 2]
     head = head[:16] + struct.pack("<I", len(keep)) + head[20:]
@@ -139,7 +148,8 @@ class _Faulty:
 
 
 @pytest.mark.parametrize("fault", sorted(FAULTS))
-@pytest.mark.parametrize("name", ("gif7-image-bulk", "fixed12-image-one"))
+@pytest.mark.parametrize("name", ("gif7-image-bulk", "fixed12-image-one",
+                                  "gif7-image-facade"))
 def test_a_fault_under_the_timed_path_is_not_correct(name, fault):
     op, fn = FAULTS[fault]
 
@@ -159,6 +169,16 @@ def test_a_fault_planted_in_the_program_is_not_correct():
     result, numbers = _run(_cell("gif7-image-one"), make)
     assert not result["correct"]
     assert numbers["container_bytes_wrong"] >= 1
+
+
+def test_a_fault_planted_in_the_facade_is_not_correct():
+    def make(config, devices, stage_times=None):
+        return _Faulty(harness.make_program_codec(config, devices), "decode",
+                       FAULTS["decode alters an output byte"][1])
+
+    result, numbers = _run(_cell("gif7-image-facade"), make)
+    assert not result["correct"]
+    assert numbers["output_bytes_wrong"] >= 1
 
 
 def test_a_call_that_raises_is_counted():

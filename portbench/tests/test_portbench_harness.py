@@ -3,6 +3,7 @@ configurations, mixes and metrics by name."""
 
 from __future__ import annotations
 
+import hashlib
 import io
 import json
 import math
@@ -13,8 +14,10 @@ import time
 import pytest
 import torch
 
-from portbench import generator, harness, readers, roofline, stats, tracing
+from portbench import check, generator, harness, readers, roofline, stats, \
+    tracing
 from portbench.corpus import load_plane
+from portbench.reference.lzw import Wire
 
 BENCH = pathlib.Path(__file__).resolve().parents[1]
 ROOT = BENCH.parent
@@ -159,9 +162,16 @@ def test_cells_report_their_metrics():
         assert all(m["moves"] in e2e for m in layer)
         one = w["traffic"] == "one-image"
         assert ("encode_p95_ms" in e2e) == one
+        config = harness.load_cell(bench, w["name"]).config
+        container = harness.entry(config) == "container"
         recovery = any(m["name"] == "schedule.count_recovery_ms"
                        for m in layer)
-        assert recovery == w["config"].startswith("gif7")
+        assert recovery == (container and w["config"].startswith("gif7"))
+        # The facade has no stage timer: no staged metric lists its cell.
+        staged = any(m["name"].split(".")[0] in ("block", "encode",
+                                                  "schedule")
+                     for m in layer)
+        assert staged == container
         for m in layer:
             assert (BENCH / "metrics" / f"{m['name']}.py").exists()
 
@@ -360,3 +370,133 @@ def test_open_arrivals_are_as_many_for_every_seed():
     even = generator.arrivals(dict(mix, arrivals="even"), 2.0, 1)
     assert even[1] == pytest.approx(0.02)
     assert generator.arrivals({"loop": "closed"}, 2.0, 1) is None
+
+
+def _bench_with(tmp_path, monkeypatch, cell: dict, config: dict | None = None):
+    """BENCHMARK.json with one more cell (and configuration), in a copy of
+    the benchmark's files."""
+    shutil.copytree(BENCH, tmp_path / "portbench",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    bench = json.loads((ROOT / "BENCHMARK.json").read_text())
+    if config is not None:
+        (tmp_path / "portbench" / "configs" / "new.json").write_text(
+            json.dumps(config))
+        bench["configs"].append({"name": "new", "source": "s",
+                                 "file": "portbench/configs/new.json",
+                                 "reduced": [], "why": "w"})
+    bench["workloads"].append(dict({"name": "new-cell", "chips": 1,
+                                    "why": "w"}, **cell))
+    (tmp_path / "BENCHMARK.json").write_text(json.dumps(bench))
+    monkeypatch.setattr(harness, "ROOT", tmp_path)
+    monkeypatch.setattr(harness, "HERE", tmp_path / "portbench")
+    return harness.load_benchmark()
+
+
+def test_a_facade_configuration_builds_the_torch_facade():
+    from lzw_tpu_torch.api import LzwCodec
+    from lzw_tpu_torch.spec import LzwSpec
+
+    cell = harness.load_cell(harness.load_benchmark(), "gif7-image-facade")
+    assert cell.chips == 1 and "block_size" not in cell.config
+    assert harness.entry(cell.config) == "facade"
+    assert harness.block_size(cell.config) is None
+    codec = harness.make_program_codec(cell.config, [torch.device("cpu")],
+                                       {})
+    assert type(codec) is LzwCodec
+    assert codec.backend == "torch" and codec.device == torch.device("cpu")
+    assert codec.spec == LzwSpec.gif(7)
+    for name in ("gif7-image-one", "fixed12-image-one"):
+        config = harness.load_cell(harness.load_benchmark(), name).config
+        assert harness.entry(config) == "container"
+        assert harness.block_size(config) == config["block_size"]
+
+
+@pytest.mark.parametrize("case", ["four chips", "block windows",
+                                  "unknown entry"])
+def test_a_facade_cell_it_cannot_run_is_refused(tmp_path, monkeypatch, case):
+    config = json.loads((BENCH / "configs" / "gif7-facade.json").read_text())
+    cell = {"config": "new", "traffic": "one-image"}
+    if case == "four chips":
+        cell["chips"] = 4
+    elif case == "block windows":
+        cell["traffic"] = "bulk"
+    else:
+        config["entry"] = "stream"
+    bench = _bench_with(tmp_path, monkeypatch, cell, config)
+    with pytest.raises(ValueError):
+        harness.load_cell(bench, "new-cell")
+
+
+# sha256 (first 16 hex digits) of the reference's containers of two inputs
+# of each container configuration and mix, cut to a test's size, as the
+# harness before the facade entry gave them.
+CONTAINERS = {"gif7-image/one-image": "c695f508f46d39d9",
+              "gif7-image/bulk": "c080c45ec3e3fcb1",
+              "fixed12-image/one-image": "3002b7b612a18df1",
+              "fixed12-image/bulk": "b1cde9c212a8415d"}
+
+
+@pytest.mark.parametrize("key", sorted(CONTAINERS))
+def test_the_container_path_expects_the_same_containers(key):
+    name, traffic = key.split("/")
+    config = json.loads((BENCH / "configs" / f"{name}.json").read_text())
+    mix = generator.load_mix(BENCH / "traffic" / f"{traffic}.json")
+    mix["inputs"] = 2
+    mix["bytes_per_call"] = 5 * 4096 if mix["window"] == "block" else \
+        5 * 4096 + 777
+    plane = load_plane(ROOT / config["corpus"])
+    inputs = generator.make_inputs(mix, plane, 4096, 2**31 + 29)
+    want = check.expected(inputs, Wire.from_dict(config["wire"]), 4096)
+    h = hashlib.sha256()
+    for e in want:
+        h.update(e.container)
+        h.update(repr((e.payload_bytes, e.codes, e.blocks)).encode())
+    assert h.hexdigest()[:16] == CONTAINERS[key]
+
+
+STREAM_READERS = {
+    "stream_encode_roofline": ("encode", "stream_encode_kernel",
+                               lambda e, n: roofline.encode_parse(n, e.codes)),
+    "stream_pass1_roofline": ("decode", "stream_pass1_kernel",
+                              lambda e, n: roofline.decode_pass1(
+                                  e.payload_bytes, e.codes)),
+    "stream_pass2_roofline": ("decode", "stream_pass2_kernel",
+                              lambda e, n: roofline.decode_pass2(n, e.codes)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(STREAM_READERS))
+def test_a_stream_kernels_roofline_reads_its_kernel(tmp_path, name):
+    """An encode [0, 100] us with ``stream_encode_kernel`` [10, 30]; a
+    decode [200, 300] with ``stream_pass1_kernel`` [210, 240] and
+    ``stream_pass2_kernel`` [250, 255]; the container's kernels beside
+    them are not read."""
+    op, kernel, work = STREAM_READERS[name]
+
+    def x(cat, nm, ts, dur):
+        return {"ph": "X", "cat": cat, "name": nm, "ts": ts, "dur": dur}
+
+    path = tmp_path / "t.pt.trace.json"
+    path.write_text(json.dumps({"traceEvents": [
+        x("user_annotation", "portbench.encode", 0, 100),
+        x("kernel", "void (anonymous namespace)::stream_encode_kernel(int)",
+          10, 20),
+        x("kernel", "encode_parse_kernel", 40, 50),
+        x("user_annotation", "portbench.decode", 200, 100),
+        x("kernel", "stream_pass1_kernel", 210, 30),
+        x("kernel", "(anonymous namespace)::stream_pass2_kernel(Args)",
+          250, 5),
+        x("kernel", "decode_pass1_kernel", 260, 30)]}))
+    profile = tracing.summarize(tracing.load(path), harness.OPS)
+    device_s = {"stream_encode_kernel": 20e-6, "stream_pass1_kernel": 30e-6,
+                "stream_pass2_kernel": 5e-6}[kernel]
+    exp = check.Expected(b"", 600, 300, 1)
+    calls = [harness.Call(op, "profiled", 0, 1000, 1e-4)]
+    reader = harness.load_reader(name)
+    assert reader.read(_run_of(calls, profile, [exp])) == pytest.approx(
+        100 * roofline.least_seconds(*work(exp, 1000)) / device_s)
+    assert reader.read(_run_of(calls, None, [exp])) is None
+    # A profile of the container's kernels alone has nothing to read.
+    other = {op: dict(profile[op], kernels={"decode_pass1_kernel": 1e-5,
+                                            "encode_parse_kernel": 1e-5})}
+    assert reader.read(_run_of(calls, other, [exp])) is None

@@ -14,6 +14,7 @@ import pathlib
 import numpy as np
 import pytest
 
+from portbench import check, generator
 from portbench.corpus import load_plane
 from portbench.reference import container, lzw
 from portbench.reference.lzw import Wire
@@ -115,3 +116,57 @@ def test_the_plane_is_the_programs():
 
     assert load_plane(DATA / "tokyo_128_colors.png").tobytes() == \
         load_tokyo_pixels(DATA / "tokyo_128_colors.png")
+
+
+@pytest.mark.parametrize("name", sorted(WIRES))
+@pytest.mark.parametrize("seed,n", [(9, 2), (10, 5000), (11, 70000)])
+def test_one_stream_by_a_dictionary_is_the_lockstep_streams(name, seed, n):
+    """The facade's reference, the dictionary parse of one stream, against
+    the lockstep parse of one row: the same codes with and without the
+    last, the same bytes, and a round trip through the decoder."""
+    wire = Wire.from_dict(WIRES[name])
+    x = _sample(name, n, seed)
+    row = np.frombuffer(x, np.uint8)[None, :]
+    for flush in (True, False):
+        codes, counts = lzw.parse(row, wire, flush=flush)
+        np.testing.assert_array_equal(
+            lzw.parse_stream(x, wire, flush=flush), codes[0, :counts[0]])
+        payload, _ = lzw.pack(codes, counts, wire, fix_eoi=False)
+        got = lzw.encode_stream(x, wire, flush=flush)
+        assert got == payload.tobytes()
+        back = lzw.decode(np.frombuffer(got, np.uint8), [len(got)], wire)
+        assert (back.tobytes() == x) == flush
+
+
+def test_one_stream_is_salzwegs_golden_file():
+    text = (DATA / "lorem_ipsum.txt").read_bytes()
+    golden = (DATA / "lorem_ipsum_encoded.bin").read_bytes()
+    wire = Wire.from_dict(WIRES["gif7"])
+    assert lzw.encode_stream(text, wire) == golden
+    raw = np.frombuffer(golden, np.uint8)
+    assert lzw.decode(raw, [len(raw)], wire).tobytes() == text
+    with pytest.raises(lzw.DecodeError):
+        lzw.decode(raw[:-3], [len(raw) - 3], wire)
+
+
+@pytest.mark.parametrize("pool", [False, True])
+def test_a_facades_expected_streams_are_the_oracles(pool):
+    from lzw_tpu_torch import GifCodec
+
+    plane = load_plane(DATA / "tokyo_128_colors.png")
+    mix = generator.load_mix(DATA.parent / "traffic" / "one-image.json")
+    mix.update(inputs=3, bytes_per_call=30000)
+    inputs = generator.make_inputs(mix, plane, None, 2**31 + 17)
+    wire = Wire.from_dict(WIRES["gif7"])
+    if pool:
+        ctx = multiprocessing.get_context("spawn")
+        with concurrent.futures.ProcessPoolExecutor(2, mp_context=ctx) as ex:
+            want = check.expected_streams(inputs, wire, ex)
+    else:
+        want = check.expected_streams(inputs, wire)
+    oracle = GifCodec(7, backend="oracle")
+    for x, exp in zip(inputs, want):
+        assert exp.container == oracle.encode(x.data)
+        assert exp.payload_bytes == len(exp.container) and exp.blocks == 1
+        assert exp.codes == len(lzw.parse_stream(x.data, wire))
+        assert oracle.decode(exp.container) == x.data

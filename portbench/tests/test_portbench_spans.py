@@ -126,6 +126,14 @@ def test_cells_list_the_new_metrics():
         variable = w.startswith("gif7")
         assert {n for n in NEW if n in names} == {
             n for n in NEW if variable or "recover" not in n}
+    # The facade opens the host and pack spans but recovers no counts.
+    names = {m["name"] for m in harness.metric_entries(
+        bench, "gif7-image-facade", True)}
+    assert {n for n in NEW if n in names} == {
+        n for n in NEW if "recover" not in n}
+    for w in ("gif7-image-one", "fixed12-image-one", "gif7-image-facade"):
+        assert "span.pack_ms" in {
+            m["name"] for m in harness.metric_entries(bench, w, True)}
 
 
 def test_a_profiled_stretch_of_the_program(tally):
@@ -143,12 +151,44 @@ def test_a_profiled_stretch_of_the_program(tally):
     profile = harness._profiled(window, codecs, 0.0, 2, False)
     run = _run_of(calls, profile)
     assert [c.phase for c in calls] == ["profiled"] * 4
-    got = {n: _read(n, run) for n in NEW}
+    got = {n: _read(n, run) for n in NEW + ("span.pack_ms",)}
     assert all(v is not None for v in got.values()), got
     assert 0 <= got["device.idle_unspanned_pct.decode"] <= 100
     # Five 512-byte blocks of one length: each candidate's EOI read reads
     # all five rows.
     assert got["schedule.recover_reads_per_block"] >= 1.0
+
+
+def test_the_pack_span(tmp_path, tally):
+    profile = _trace(tmp_path)
+    calls = [harness.Call(op, "profiled", 0, 1, 1e-4)
+             for op in ("encode", "encode", "decode")]
+    run = _run_of(calls, profile)
+    assert _read("span.pack_ms", run) is None
+    tally.add("lzw.enc_pack", 0.003)
+    # 3 ms over two encodes.
+    assert _read("span.pack_ms", run) == pytest.approx(1.5)
+    assert _read("span.pack_ms", _run_of(calls)) is None
+
+
+def test_a_profiled_stretch_of_the_facade(tally):
+    """The profiled half over the ``"torch"`` facade on the CPU, at a
+    test's size: its host, pack and idle readers read something."""
+    cfg = json.loads((harness.HERE / "configs" / "gif7-facade.json")
+                     .read_text())
+    mix = {"ops": ["encode", "decode"], "loop": "closed", "callers": 1}
+    codecs = [harness.make_program_codec(cfg, [torch.device("cpu")])]
+    calls = []
+    window = harness._Window(mix, [generator.Input(bytes(range(64)) * 40)],
+                             _Tally(), calls, 1)
+    window.warm(codecs)
+    profile = harness._profiled(window, codecs, 0.0, 2, False)
+    run = _run_of(calls, profile)
+    for name in ("span.pack_ms", "span.enc_host_ms", "span.dec_host_ms"):
+        assert _read(name, run) > 0
+    for name in ("device.idle_unspanned_pct.encode",
+                 "device.idle_unspanned_pct.decode"):
+        assert 0 <= _read(name, run) <= 100
 
 
 class _Tally:

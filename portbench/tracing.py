@@ -9,8 +9,8 @@ operation this gives:
 * ``wall_s``: the length of the union of its calls (their sum, where
   one caller makes one call at a time);
 * ``busy_s``: the length of the union of the device events inside its
-  calls: the busy share of the program's ``utils/profile_decode.py``
-  (device time over wall time), with events that overlap counted once;
+  calls, with events that overlap counted once (over ``wall_s``, the
+  device's busy share);
 * ``kernels``: device seconds by event name, inside its calls;
 * ``gaps``: the seconds inside its calls in which the device was idle, by
   what the host was doing at the middle of each gap (the shortest host
