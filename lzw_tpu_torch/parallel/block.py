@@ -374,6 +374,7 @@ class BlockParallelCodec:
     def encode(self, data: bytes) -> bytes:
         """Compress to the LZWT container."""
         data = bytes(data)
+        spans.count("encode.blocks", -(-len(data) // self.block_size))
         with self._call("encode", data):
             return self._encode(data)
 
@@ -471,6 +472,7 @@ class BlockParallelCodec:
     def decode(self, container: bytes) -> bytes:
         """Decompress an LZWT container (order-preserving gather)."""
         container = bytes(container)
+        spans.count("decode.blocks", framing.block_count(container))
         with self._call("decode", container):
             return self._decode(container)
 

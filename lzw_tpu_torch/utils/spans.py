@@ -79,7 +79,9 @@ class Tally:
 
 
 # Every counter's ticks: ``recover.blocks`` (the rows count recovery was
-# given), ``recover.reads`` (the rows its candidate loop read).
+# given), ``recover.reads`` (the rows its candidate loop read),
+# ``encode.blocks`` / ``decode.blocks`` (the blocks of each public call of
+# the container codec, once a call whatever its ranges).
 COUNTS = Tally()
 # While a profiler records: each counter's ticks, and each span's seconds
 # under its trace name (``"lzw.dec_count_recovery"``).

@@ -4,8 +4,8 @@ Under ``torch.profiler`` every public call of the container codec and of
 the ``"torch"`` facades is a host range ``lzw.encode`` / ``lzw.decode``
 whose args hold its call id, with its steps as stage spans inside it;
 with no profiler no range is opened at all.  The stage timer behind
-``stage_times`` keeps its keys on every route, and count recovery counts
-the EOI symbols it reads.
+``stage_times`` keeps its keys on every route, count recovery counts
+the EOI symbols it reads, and the container counts each call's blocks.
 """
 
 import collections
@@ -349,6 +349,34 @@ def test_recover_counters_on_crafted_streams():
             if not k.startswith(spans.PREFIX)} == {"recover.blocks": 1,
                                                    "recover.reads": 1}
     assert set(tally) > {"lzw.recover.candidates", "lzw.recover.strict"}
+
+
+@pytest.mark.parametrize("devices", [["cpu"], ["cpu", "cpu"]],
+                         ids=["one-range", "two-ranges"])
+@pytest.mark.parametrize("op", ["encode", "decode"])
+def test_block_counters_count_each_call_once(op, devices):
+    spec = SPECS["tiff"]
+    data = _data(4 * 256 + 50, seed=3)
+    codec = BlockParallelCodec(spec, 256, device=devices, pass2="device")
+    container = codec.encode(data)
+    call, arg, want = ((codec.encode, data, container) if op == "encode"
+                       else (codec.decode, container, data))
+    name = f"{op}.blocks"
+
+    def ticks(tally, before):
+        return tally.snapshot().get(name, 0) - before.get(name, 0)
+
+    counts, profiled = spans.COUNTS.snapshot(), spans.PROFILED.snapshot()
+    assert call(arg) == want
+    # With no profiler the counter ticks, and nothing is gathered.
+    assert ticks(spans.COUNTS, counts) == 5
+    assert spans.PROFILED.snapshot() == profiled
+    with profile(activities=[ProfilerActivity.CPU]):
+        call(arg)
+        call(arg)
+    # Five blocks a call, once a call, whatever the ranges.
+    assert ticks(spans.PROFILED, profiled) == 10
+    assert ticks(spans.COUNTS, counts) == 15
 
 
 def test_torch_facade_spans(tmp_path):
