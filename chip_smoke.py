@@ -18,14 +18,18 @@ Phases, one line each, any failure exits non-zero:
    against the padded rows' masked bytes and both walks' bytes against the
    blocks, for gif7, gif2, tiff
    and fixed-12 on 64 blocks x 8 KiB of random and compressible data; then
-   the encode-parse and pass-1 kernels on the edge cases of their
-   one-chain-per-warp design (``lzw_tpu_torch.utils.testdata``: blocks of
-   length 0, 1, 2 and B in one launch, partly filled CTAs and more blocks
-   than one round of chains, full tables, resets, KwKwK runs, errors and
-   the words past each block's stop), the encode parse with and without
-   positions against one plain run, pass 1 with every row kind, exact
-   (here and in phases 4 and 5 the encode parse's two instances, the
-   container's and the positions one, against one plain run);
+   the encode-parse and pass-1 kernels on their edge cases
+   (``lzw_tpu_torch.utils.testdata``: blocks of length 0, 1, 2 and B in
+   one launch, partly filled CTAs and more blocks than one round of
+   chains, full tables, resets, KwKwK runs, errors and the words past each
+   block's stop), the encode parse with and without positions against one
+   plain run, pass 1 with every row kind, exact, on those cases and on the
+   edges of a block's dictionary epochs; then ``[pass1]`` lines: pass 1
+   at one image plane a call (11 x 64 KiB gif7, 86 x 8 KiB TIFF, 171 x 4
+   KiB fixed-12) against the plain version and timed, as again at phases 4
+   and 5's shapes (here and in phases 4 and 5 the encode parse's two
+   instances, the container's and the positions one, against one plain
+   run);
 4. the slice: ``BlockParallelCodec(LzwSpec.gif(7), device="cuda:0")`` on
    128 MiB (2048 x 64 KiB blocks) of the tiled image corpus and of the tiled
    text corpus: every payload equal to the native runtime's encoder, and a
@@ -146,14 +150,18 @@ Phases, one line each, any failure exits non-zero:
 
 ``python3 chip_smoke.py --stream-only`` runs phases 1, 2 and 14 alone
 (about two minutes), ``python3 chip_smoke.py --contract-only`` phases 1, 2
-and 16, ``python3 chip_smoke.py --probes-only`` phases 1, 2 and 8; each
-ends with ``[done]`` lines, not the JSON lines.
+and 16, ``python3 chip_smoke.py --probes-only`` phases 1, 2 and 8,
+``python3 chip_smoke.py --pass1-only`` phases 1, 2 and the ``[pass1]``
+lines (pass 1 at one image plane a call and at phases 4 and 5's shapes);
+each ends with ``[done]`` lines, not the JSON lines.
 
-Phases 1-8 run on cuda:0.  Each timing of the encode-parse and pass-1
-kernels also prints their chains in flight (CTAs per SM from the occupancy
-query x warps per CTA x SMs), the rounds of chains the launch takes and the
-ns per chain step:
-the kernel's time over rounds x steps of the longest block.  Each timing
+Phases 1-8 run on cuda:0.  Each timing of the encode-parse kernel also
+prints its chains in flight (CTAs per SM from the occupancy query x warps
+per CTA x SMs), the rounds of chains the launch takes and the ns per chain
+step: the kernel's time over rounds x steps of the longest block.  Each
+timing of pass 1 prints its CTAs (one a block), the epochs each walks in
+turn and the us per epoch: the kernel's time over the rounds of CTAs the
+card's SMs take x the epochs of a block.  Each timing
 of a walk (``[walk]`` lines) prints the walk's launch alone, the scan, the
 torch call the scan replaced, the flat and padded wrappers, the longest
 word and the walk's time over the dependent loads along it.
@@ -414,9 +422,8 @@ def compare_decode(spec, codes, n_codes, block, sched_t, label,
         res[p1_name] = result(max_abs_err(dec, ref), ms, plain_ms,
                               4 * n + stats_bytes + 8 * n + 12 * n_blocks,
                               16 * n)
-        say("chains", f"{label}: {p1_name} " + chain_line(
-            "decode_pass1", n_blocks, int(n_codes.max()), n / n_blocks, ms,
-            codes.device))
+        say("chains", f"{label}: {p1_name} " + pass1_line(
+            spec, n_blocks, width, ms, codes.device))
     words, totals = dec[0], dec[1]
 
     # The scan, on live slots (the kernel writes no other), beside the torch
@@ -552,6 +559,92 @@ def compare_kernels(spec, mat, lens, block, device, label,
         "with and without positions), "
         + ("both walks" if stride1 else "pass 2") + " == input")
     return res
+
+
+def run_pass1(spec, mat, lens, block, device, label, plain: bool) -> None:
+    """Pass 1 on ``mat``'s blocks as the container's decode meets them,
+    with every row kind: equal to the plain version where ``plain``, and
+    the words decode to the blocks' sizes.  Prints its time (CUDA events:
+    the wrapper, and the launch alone from a CUDA graph, fewer calls a
+    graph at the bulk shapes)."""
+    import torch
+
+    from lzw_tpu_torch.kernels import decode as tdec
+    from lzw_tpu_torch.kernels import encode as tenc
+    from lzw_tpu_torch.utils.card import cuda_ms
+
+    enc = tenc.encode_blocks_codes(torch.from_numpy(mat).to(device),
+                                   torch.from_numpy(lens).to(device), spec)
+    codes, n_codes, sched_t = pass1_inputs(spec, enc[0], enc[1], device)
+    del enc
+    N, S = codes.shape
+    parts = []
+    for rows in tdec.ROW_KINDS:
+        args = (codes, n_codes, spec, block, sched_t, rows)
+        out = tdec.decode_pass1(*args)
+        if plain:
+            err = max_abs_err(out, tdec.decode_pass1_reference(*args))
+            if err:
+                raise AssertionError(f"{label}: pass 1 rows={rows}: "
+                                     f"max_abs_err {err} against plain")
+        totals, errs = out[1:3]
+        if int(errs.abs().sum()) or not torch.equal(
+                totals.cpu(), torch.from_numpy(lens)):
+            raise AssertionError(f"{label}: pass 1 did not decode the blocks")
+        del out
+        fn = (lambda: tdec.decode_pass1(*args))
+        alone = graph_ms(fn, 20 if N < 1024 else 4)
+        parts.append(f"rows {rows}: {cuda_ms(fn):.4f} (alone {alone:.4f}) "
+                     f"ms, " + pass1_line(spec, N, S, alone, device))
+    say("pass1", f"{label}: N={N} S={S}; " + "; ".join(parts)
+        + ("; == plain exactly" if plain else ""))
+
+
+def run_pass1_images(image: bytes, device) -> None:
+    """:func:`run_pass1` on one image plane a call, cut as the container
+    cells cut it: 11 x 64 KiB gif7 blocks, 86 x 8 KiB TIFF strips, 171 x 4
+    KiB fixed-12 blocks; against the plain version too."""
+    import numpy as np
+
+    from lzw_tpu_torch import Endianness, LzwSpec
+
+    plane = np.frombuffer(image, np.uint8)
+    for label, spec, block in (
+            ("gif7 one image", LzwSpec.gif(7), 1 << 16),
+            ("TIFF one image", LzwSpec.tiff(), 8192),
+            ("fixed-12 one image", LzwSpec.fixed(Endianness.LITTLE), 4096)):
+        n = -(-len(plane) // block)
+        mat = np.zeros((n, block), np.uint8)
+        mat.reshape(-1)[: len(plane)] = plane
+        lens = np.full(n, block, np.int32)
+        lens[-1] = len(plane) - (n - 1) * block
+        run_pass1(spec, mat, lens, block, device, label, plain=True)
+
+
+def run_pass1_bulk(label, spec, data: bytes, block, device) -> None:
+    """:func:`run_pass1` at a bulk shape (phases 4 and 5: 2048 x 64 KiB
+    gif7, 8192 x 4 KiB fixed-12); :func:`compare_kernels` holds it against
+    plain there."""
+    import numpy as np
+
+    mat = np.frombuffer(data, np.uint8).reshape(-1, block).copy()
+    run_pass1(spec, mat, np.full(len(mat), block, np.int32), block, device,
+              label, plain=False)
+
+
+def pass1_line(spec, n_blocks: int, S: int, ms: float, device) -> str:
+    """Pass 1's launch over ``n_blocks`` blocks of ``S`` codes: a CTA a
+    block walking its epochs in turn, and ``ms`` over the rounds of CTAs
+    the card's SMs take (one CTA an SM) x the epochs of a block."""
+    import torch
+
+    from lzw_tpu_torch.kernels import schedule as tsched
+
+    epochs = -(-S // tsched.epoch_steps(spec)) if spec.variable else 1
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    rounds = -(-n_blocks // sms) * epochs
+    return (f"{n_blocks} CTAs x {epochs} epoch(s) in turn, "
+            f"{ms * 1e3 / max(rounds, 1):.2f} us per round of an epoch")
 
 
 def chain_line(name: str, n_blocks: int, steps: int, mean: float,
@@ -2662,6 +2755,16 @@ def main(only: str | None = None) -> int:
         say("done", f"launches {launches}; wall time "
             f"{time.perf_counter() - t_start:.1f} s; {smi}")
         return 0
+    if only == "--pass1-only":
+        run_pass1_images(tokyo, device)
+        run_pass1_bulk("gif7 image main-path shape", LzwSpec.gif(7),
+                       tile(tokyo, 128 * MiB), 1 << 16, device)
+        run_pass1_bulk("fixed-12 image container shape",
+                       LzwSpec.fixed(Endianness.LITTLE),
+                       tile(tokyo, 32 * MiB), 1 << 12, device)
+        say("done", f"wall time {time.perf_counter() - t_start:.1f} s; "
+            f"{smi}")
+        return 0
 
     # 3. Kernel vs plain, all four flavors, 64 x 8 KiB.
     specs = {"gif7": LzwSpec.gif(7), "gif2": LzwSpec.gif(2),
@@ -2670,9 +2773,12 @@ def main(only: str | None = None) -> int:
         mat, lens = sample_blocks(spec, 64, 8192, seed=i)
         compare_kernels(spec, mat, lens, 8192, device, label, stride1=True)
     n_enc, n_pass1 = testdata.check_edge_cases(device)
+    n_epochs = testdata.check_pass1_cases(device,
+                                          testdata.pass1_epoch_cases())
     say("kernels", f"edge cases: encode_parse on {n_enc} cases with and "
-        f"without positions and decode_pass1 on {n_pass1} cases x 3 row "
-        "kinds == plain exactly")
+        f"without positions and decode_pass1 on {n_pass1} + {n_epochs} "
+        "cases x 3 row kinds == plain exactly")
+    run_pass1_images(tokyo, device)
 
     # 4. The slice at full size.
     lorem = (assets / "lorem_ipsum.txt").read_bytes()
@@ -2693,6 +2799,8 @@ def main(only: str | None = None) -> int:
     full = compare_kernels(gif7, mat, lens, 1 << 16, device,
                            "gif7 image main-path shape")
     del data, mat
+    run_pass1_bulk("gif7 image main-path shape", gif7,
+                   tile(tokyo, 128 * MiB), 1 << 16, device)
 
     # 5. Fixed-12 container, 32 MiB at 4 KiB blocks, and the kernels at its
     # shape.
@@ -2704,6 +2812,8 @@ def main(only: str | None = None) -> int:
     compare_kernels(fixed, mat, lens, 1 << 12, device,
                     "fixed-12 image container shape")
     del data, mat
+    run_pass1_bulk("fixed-12 image container shape", fixed,
+                   tile(tokyo, 32 * MiB), 1 << 12, device)
 
     # 6. Non-strict gif7 container, 128 x 64 KiB.
     add([run_nonstrict(gif7, tile(tokyo, 8 * MiB), 1 << 16,
@@ -2793,7 +2903,7 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--multihost-worker"]:
         sys.exit(multihost_worker(sys.argv[2:]))
     if sys.argv[1:] not in ([], ["--stream-only"], ["--contract-only"],
-                            ["--probes-only"]):
+                            ["--probes-only"], ["--pass1-only"]):
         sys.exit(f"usage: {sys.argv[0]} [--stream-only | --contract-only | "
-                 "--probes-only]")
+                 "--probes-only | --pass1-only]")
     sys.exit(main(only=(sys.argv[1:] or [None])[0]))

@@ -72,8 +72,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 PROTOTYPES = {
     "encode_parse": {"encode_parse_launch": "PPIIIIIPPPPPIIIP",
                      "encode_parse_occupancy": "IIP"},
-    "decode_pass1": {"decode_pass1_launch": "PPIIIIIPPPPPIPPPIIIP",
-                     "decode_pass1_occupancy": "IIP"},
+    "decode_pass1": {"decode_pass1_launch": "PPIIIIIPIIPPIPPPIIP"},
     "word_ends": {"word_ends_launch": "PPIIIPP"},
     "decode_pass2": {"decode_pass2_launch": "PPPPPPPIIIIIPP"},
     "decode_pass2_stride1": {"decode_pass2_stride1_launch": "PPPPPPPIIIIIPP"},

@@ -1,12 +1,13 @@
-"""Launch geometry of the one-chain-per-warp kernels, and the CTA of the
-single-stream encode kernel.
+"""Launch geometry of the one-chain-per-warp encode kernel, and the CTAs
+of the single-stream encode kernel and of decode pass 1.
 
-``csrc/encode_parse.cu`` and ``csrc/decode_pass1.cu`` run one LZW block's
-chain per warp, with the block's dictionary and a small staging window of
-its inputs in dynamic shared memory; a warp that finishes its block takes
-another (``csrc/warp_chain.cuh``).  This module computes the grid from the
-card's SM count and the kernel's occupancy; the occupancy query is the
-only part that needs the card.
+``csrc/encode_parse.cu`` runs one LZW block's chain per warp, with the
+block's dictionary and a small staging window of its inputs in dynamic
+shared memory; a warp that finishes its block takes another
+(``csrc/warp_chain.cuh``).  This module computes the grid from the card's
+SM count and the kernel's occupancy; the occupancy query is the only part
+that needs the card.  ``csrc/stream_encode.cu`` and ``csrc/decode_pass1.cu``
+launch a CTA of fixed shape per row or block (:class:`CtaLayout`).
 """
 
 from __future__ import annotations
@@ -20,7 +21,7 @@ import torch
 
 from lzw_tpu_torch.kernels import build
 
-__all__ = ["Layout", "LAYOUTS", "StreamEncodeLayout", "STREAM_ENCODE",
+__all__ = ["Layout", "LAYOUTS", "CtaLayout", "STREAM_ENCODE", "DECODE_PASS1",
            "MAX_SHARED_BYTES", "Geometry", "geometry", "ctas_per_sm",
            "launch_geometry", "chains_in_flight"]
 
@@ -40,24 +41,27 @@ class Layout(NamedTuple):
 LAYOUTS = {
     # 7168 u32 hash slots and a 48-int window: 8 chains per SM.
     "encode_parse": Layout(8, 4 * 7168 + 4 * 48),
-    # Two u32 planes of 4096 codes and a 3 x 34-int window: 7 chains per SM.
-    "decode_pass1": Layout(7, 2 * 4 * 4096 + 4 * 3 * 34),
 }
 
 
-class StreamEncodeLayout(NamedTuple):
-    """``csrc/stream_encode.cu``'s CTA, one a row: ``threads`` threads (one
-    runs the chain, all zero the tables) and ``shared_bytes`` of dynamic
+class CtaLayout(NamedTuple):
+    """A kernel's CTA: ``threads`` threads and ``shared_bytes`` of dynamic
     shared memory; its launch function refuses any other."""
 
     threads: int
     shared_bytes: int
 
 
-# The source's kThreads and kSharedBytes: the hash (16384 u64 slots), the
-# input ring (4 chunks of 4 KiB) and the 16-byte slot of the table's
-# address; every flavor takes the same CTA, one an SM.
-STREAM_ENCODE = StreamEncodeLayout(128, 8 * 16384 + 4 * 4096 + 16)
+# ``csrc/stream_encode.cu``'s CTA, one a row (one thread runs the chain,
+# all zero the tables), the source's kThreads and kSharedBytes: the hash
+# (16384 u64 slots), the input ring (4 chunks of 4 KiB) and the 16-byte
+# slot of the table's address; every flavor takes the same CTA, one an SM.
+STREAM_ENCODE = CtaLayout(128, 8 * 16384 + 4 * 4096 + 16)
+
+# ``csrc/decode_pass1.cu``'s CTA, one a block (kThreads, kSharedBytes): by
+# step of an epoch (4096 at most), the code (i32), the forest link (u32),
+# the local offset (i32), the word's length (u16) and first byte (u8).
+DECODE_PASS1 = CtaLayout(1024, 4096 * (4 + 4 + 4 + 2 + 1))
 
 _ctas: dict[tuple[str, int], int] = {}
 _ctas_lock = threading.Lock()

@@ -1,5 +1,6 @@
-// LZW decode pass 1 for Hopper: codes -> copy/literal descriptors, one
-// chain per warp.
+// LZW decode pass 1 for Hopper: codes -> copy/literal descriptors, one CTA
+// per block, the block's dictionary epochs decoded one after another, each
+// by the whole CTA at once.
 //
 // Replaces the TPU kernel lzw_tpu/kernels/decode_pallas.py:_decode_kernel
 // (via _make_kernel; callers decode_pass1_fixed_tpu and _variable_pass1):
@@ -14,41 +15,38 @@
 // 1 literal with payload = byte, 2 hole).  The host's apply_words then
 // resolves the copies.
 //
-// What bounds it on the H100: one block is a sequential chain (each code's
-// entry depends on the words before it), so the time is one dependent step
-// through the block's dictionary per code, times the codes of the longest
-// block, times the rounds of chains the card holds at once (132 SMs x 7
-// warps = 924); blocks of unequal length take the slowest chain's sum.  A
-// step is ~90 instructions of selects, and two warps share most of an SM's
-// four schedulers, so the step is bound by issue as much as by latency.
-// Bytes moved are small: 4 B in and 4-8 B out per code.
-//
-// What the design does about it (warp_chain.cuh): each warp owns one block
-// at a time, with two u32 planes indexed by code in shared memory (plane A
-// suffix<<20 | len<<8 | first, plane B prefix<<17 | src; 2 x 16 KiB), so a
-// lookup is a shared load of ~30 cycles where the global planes of the
-// earlier design paid a store->load round trip through L2.  A lookup's
-// address is the code itself, so code t+1's entries are loaded during step
-// t, before step t stores its own entry; when code t+1 is the entry step t
-// created, the values come from registers.  The chain's carried state is
-// then the offset, the previous length and first byte, all in registers,
-// and a step is branch-free selects but for the loop's own branch; the row
-// kind and the flavor are template arguments.  The blocks of a batch differ
-// in codes (2048 image blocks of 64 KiB: a mean of 17.2k, the longest
-// 28.2k), so the warps take them longest first from a shared work list,
-// not at a fixed stride.  Codes and schedule rows reach the chain through
-// the warp's staging window, 32 steps at a time, two codes and one
-// schedule value ahead; words and rows leave once per window, one
-// coalesced store of 32.  The chain ends at the block's own n_codes or its
-// first error; the words and rows after that are a function of the code,
-// t, the schedule rows and the state frozen at the stop, and the warp's 32
-// lanes write them together, coalesced.  The TPU could not gather per
-// lane, so it kept step-indexed tables (row = epoch_start + 1 + code -
-// first_free) in a 4096-row ring and matched rows with windowed sum-select
-// scans; the ring, windows and row mapping are gone.  Stale entries of an
-// earlier epoch are never read: within an epoch every code below `next`
-// was inserted in that epoch.  The planes start zeroed, as the plain
-// version's tables, for codes never inserted.
+// What bounds it on the H100: walked code by code, a block is a sequential
+// chain (each code's entry depends on the words before it), a dependent
+// step per code.  But a strict variable block's epochs start at static
+// steps (every `period` = schedule.epoch_steps codes), and an epoch never
+// reads an entry of an earlier one (within an epoch every code below `next`
+// was inserted in that epoch), so the chain is only as long as an epoch,
+// and an epoch is a forest: step k's word is a literal (k = 0 or a root),
+// the 0 bytes of a CLEAR or EOI code, or the word of step code - first_free
+// and one byte (KwKwK included).  So, as stream_pass1.cu does
+// (epoch_forest.cuh), the CTA's 1024 threads take an epoch's <= 4096 steps
+// at once: pointer jumping gives lengths and first bytes, one CTA scan the
+// local offsets, and a CTA minimum the first code past the next index.
+// What an epoch takes from the ones before is their state, kept in
+// registers from one epoch to the next: the offset it starts at, the last
+// word's length, and whether the block has stopped; the first step whose
+// word passes block_size is a CTA minimum once the offset is known.  Each
+// epoch writes its words, pair rows and the holes past the stop (the
+// words after a block's stop are a function of the code, the step, the
+// schedule rows and the state frozen at the stop); the epoch the block
+// stops in, or the last, writes totals, err and err_code.  A fixed-12
+// block is one epoch, the steps up to the table's freeze, then its frozen
+// tail in 4096-step chunks: each step a root, a lookup of an epoch step's
+// word, KwKwK on the frozen next index 4096 (a chain of them jumped like
+// the forest) or a code past it, one CTA scan a chunk.  Codes are not
+// negative.  What bounds an epoch is its dozen or so rounds of CTA barriers
+// and dependent shared loads, not bytes (4 B in and 4-8 B out per code):
+// a few blocks leave most SMs idle for their epochs in turn, and a bulk
+// launch (2048 blocks, one CTA an SM) runs its rounds of 132 blocks
+// (PERF.md, kernel table, K3).  The TPU could not gather per lane, so it
+// kept step-indexed tables (row = epoch_start + 1 + code - first_free) in
+// a 4096-row ring and matched rows with windowed sum-select scans; the
+// ring, windows and row mapping are gone.
 //
 // Stride-1 pair rows (decode_pallas.py:336-341): row t holds
 //   nxt<<20 | prev_code<<8 | first
@@ -61,9 +59,8 @@
 // prev_code, suffix `first`), else 0:
 //   done<<28 | prefix(p)<<16 | suffix(p)<<8 | suffix(c),  p = prev_code,
 // with done = 1 and suffix(p) = p's root byte when p is a root/literal.
-// (prefix, suffix) of the code consumed at the previous step ride in the
-// `pps` register (-1 for a root/literal); a looked-up code takes them from
-// the planes' extra fields, a KwKwK code from the entry just created.
+// (prefix, suffix) of the code consumed at the previous step are those of
+// the word it looked up, or of the entry just created for a KwKwK code.
 //
 // Semantics (decode_pallas.py:176-361):
 //  * the first step of an epoch is a literal; a stale non-root first code
@@ -75,31 +72,31 @@
 //  * variable `next` and epoch starts come from the static schedule rows
 //    (`sched` [2, S]); fixed tables count `next` and freeze at 4096.
 
+#include <climits>
 #include <cstdint>
 #include <cuda_runtime.h>
 
-#include "warp_chain.cuh"
+#include "epoch_forest.cuh"
 
 namespace {
 
 constexpr int kTableSize = 4096;
-// Two u32 planes of kTableSize codes per block, then the staging window:
-// three rows of 32 steps and two more; kernels/chains.py LAYOUTS holds the
-// same sizes.
-constexpr int kTableBytes = 2 * 4 * kTableSize;
-constexpr int kStageRow = warp_chain::kWindow + 2;
-constexpr int kStageInts = 3 * kStageRow;
-constexpr int kChainBytes = kTableBytes + 4 * kStageInts;
 // Which pair rows to write (decode.py: ROW_KINDS).  A template argument, as
-// is the fixed flavor, so each kind and flavor compiles to its own loop: no
-// branch on either per code, and without stride-2 rows the `pps` carry is
-// dead code.
+// is the fixed flavor, so each kind and flavor compiles to its own kernel.
 constexpr int kRowsNone = 0;
 constexpr int kRowsStride1 = 1;
 constexpr int kRowsStride2 = 2;
 
+constexpr int kThreads = 1024;
+constexpr int kPerThread = 4;  // steps a thread owns in an epoch
+constexpr int kEpochSteps = kThreads * kPerThread;  // >= an epoch's steps
+// Dynamic shared memory, by step of an epoch: the code (i32), the forest
+// link (u32), the local offset (i32), the word's length (u16) and first
+// byte (u8); kernels/chains.py DECODE_PASS1.
+constexpr int kSharedBytes = kEpochSteps * (4 + 4 + 4 + 2 + 1);
+
 // The descriptor of a step that is not ok and looks nothing up: every step
-// after the chain's stop.  `nxt` is the step's next index.
+// after the block's stop.  `nxt` is the step's next index.
 __device__ __forceinline__ uint32_t hole_word(int code, int nxt,
                                               bool first_step, int alphabet,
                                               int prev_len, int off) {
@@ -113,212 +110,357 @@ __device__ __forceinline__ uint32_t hole_word(int code, int nxt,
          static_cast<uint32_t>(payload);
 }
 
+// The descriptor of a word that is not a hole: a literal (step 0 of an
+// epoch or a root), or a copy of `len` bytes from `src`.
+__device__ __forceinline__ uint32_t word_desc(bool lit, int code,
+                                              int alphabet, int len,
+                                              int64_t src) {
+  return lit ? (1u << 29) | (1u << 17) |
+                   static_cast<uint32_t>(code < alphabet ? code : 0)
+             : (static_cast<uint32_t>(len) << 17) |
+                   static_cast<uint32_t>(src);
+}
+
 template <int kRows, bool kFixed>
-__global__ void decode_pass1_kernel(
+__global__ void __launch_bounds__(kThreads, 1) decode_pass1_kernel(
     const int32_t* __restrict__ codes, const int32_t* __restrict__ n_codes,
-    int n_blocks, int S, int block_size, int alphabet, int first_free,
-    const int32_t* __restrict__ sched, const int32_t* __restrict__ order,
-    int32_t* __restrict__ counter, int32_t* __restrict__ words,
-    int32_t* __restrict__ rows, int32_t* __restrict__ totals,
-    int32_t* __restrict__ err, int32_t* __restrict__ err_code) {
-  extern __shared__ uint4 shared[];
-  const int lane = threadIdx.x & 31;
-  const int warps = blockDim.x >> 5;
-  const int warp = threadIdx.x >> 5;
-  uint32_t* ta = reinterpret_cast<uint32_t*>(shared) + warp * 2 * kTableSize;
-  uint32_t* tb = ta + kTableSize;
-  // The staging window: codes (two ahead), then the schedule rows' next
-  // index and epoch start (one ahead).
-  int32_t* st_code = reinterpret_cast<int32_t*>(shared) +
-                     warps * 2 * kTableSize + warp * kStageInts;
-  int32_t* st_next = st_code + kStageRow;
-  int32_t* st_start = st_next + kStageRow;
-  constexpr bool fixed = kFixed;  // sched is null
-  constexpr int kMask = kTableSize - 1;
+    int S, int block_size, int alphabet, int first_free,
+    const int32_t* __restrict__ sched, int period, int epochs,
+    int32_t* __restrict__ words, int32_t* __restrict__ rows,
+    int32_t* __restrict__ totals, int32_t* __restrict__ err,
+    int32_t* __restrict__ err_code) {
+  constexpr int kT = kThreads;
+  constexpr int kPer = kPerThread;
+  extern __shared__ __align__(16) uint8_t smem[];
+  __shared__ int64_t sums[kPer * kT / 32];
+  __shared__ int s_bad, s_over, s_len, s_code;
+  __shared__ int64_t s_off;
+  int32_t* code = reinterpret_cast<int32_t*>(smem);
+  uint32_t* link = reinterpret_cast<uint32_t*>(code + kEpochSteps);
+  int32_t* loff = reinterpret_cast<int32_t*>(link + kEpochSteps);
+  uint16_t* len16 = reinterpret_cast<uint16_t*>(loff + kEpochSteps);
+  uint8_t* first8 = reinterpret_cast<uint8_t*>(len16 + kEpochSteps);
+  const int t = threadIdx.x;
+  const int ff = first_free;
+  const int n = blockIdx.x;
+  const int nc = min(max(n_codes[n], 0), S);
 
-  for (int i = warp_chain::take(counter, lane); i < n_blocks;
-       i = warp_chain::take(counter, lane)) {
-    const int n = order[i];
-    const int64_t row = static_cast<int64_t>(n) * S;
-    const int32_t* c_row = codes + row;
-    int32_t* w_row = words + row;
-    int32_t* p_row = kRows == kRowsNone ? nullptr : rows + row;
-    const int nc = min(max(n_codes[n], 0), S);
-    warp_chain::clear<kTableBytes>(ta, lane);
+  // The state before each epoch: the block's offset, the last word's
+  // length, and whether the block has stopped (both frozen there).
+  int64_t base = 0;
+  int x_len = 0;
+  bool x_stop = false;
+  int nxt_frozen = ff;  // the next index at the stop (fixed-12)
+  int span = 0;
+  int64_t v[kPer];
+  for (int e = 0; e < epochs; ++e) {
+    const int s0 = e * period;
+    span = max(min(period, S - s0), 0);  // the epoch's steps
+    // Its steps below n_codes; none to decode once the block has stopped.
+    const int lim = x_stop ? 0 : min(max(nc - s0, 0), span);
+    const int64_t row = static_cast<int64_t>(n) * S + s0;
+    __syncthreads();  // the epoch before is done with the shared arrays
+    if (t == 0) {
+      s_bad = INT_MAX;
+      s_over = INT_MAX;
+    }
 
-    int prev_len = 0, prev_first = 0, off = 0, nxt = first_free;
-    int prev_code = 0, pps = -1;
-    int e = 0, ec = 0;
-    int t = 0;
-    // This lane's word and row of the window (step t0 + lane).
-    int32_t w_keep = 0, p_keep = 0;
-    if (nc > 0) {
-      warp_chain::Window<int32_t> cs, ns, ss;
-      cs.start(c_row, S, lane);
-      cs.fill<2>(st_code);
-      int start = 0;
-      if (!fixed) {
-        ns.start(sched, S, lane);
-        ns.fill<1>(st_next);
-        ss.start(sched + S, S, lane);
-        ss.fill<1>(st_start);
-        nxt = st_next[0];
-        start = st_start[0];
+    // 1. Read the codes; link each step to the word it extends, and find
+    // the first code past the next index (a root of its own).
+    int c[kPer];
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) {
+      const int k = i * kT + t;
+      c[i] = k < span ? __ldg(codes + row + k) : 0;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) {
+      const int k = i * kT + t;
+      if (k < span) code[k] = c[i];
+      if (k < lim) {
+        const bool bad = k >= 1 && c[i] > ff + k - 1;
+        const bool root = k == 0 || c[i] < ff || bad;
+        link[k] = root ? static_cast<uint32_t>(k)
+                       : static_cast<uint32_t>(c[i] - ff) | (1u << 16);
+        if (bad) atomicMin(&s_bad, k);
       }
-      // The entry step t-1 created (valid when ins_prev), for code t.
-      bool ins_prev = false;
-      int ins_code = 0;
-      uint32_t ins_a = 0, ins_b = 0;
-      int code = st_code[0];
-      int code_next = st_code[1];
-      uint32_t a = ta[code & kMask];
-      uint32_t b = tb[code & kMask];
-      for (;;) {
-        const int t0 = t;
-        const int w_end = min(nc, t0 + warp_chain::kWindow);
-        for (; t < w_end && e == 0; ++t) {
-          const int j = t - t0;
-          // Off the chain: code t+2, the schedule values of step t+1, and
-          // code t+1's entries, loaded before this step's insert.
-          const int code_after = st_code[j + 2];
-          const int nxt_next = fixed ? 0 : st_next[j + 1];
-          const int start_next = fixed ? 0 : st_start[j + 1];
-          const uint32_t a_next = ta[code_next & kMask];
-          const uint32_t b_next = tb[code_next & kMask];
-          if (ins_prev && (code & kMask) == ins_code) {
-            a = ins_a;
-            b = ins_b;
+    }
+    __syncthreads();
+    const int E = min(s_bad, lim);  // steps [0, E) are words
+    epoch_forest::jump_to_roots<kT, kPer>(link, E);
+
+    // 2. Lengths and first bytes from the roots (a literal, or the 0 bytes
+    // of a CLEAR or EOI code), then the local offsets.
+    int ln[kPer];
+    int64_t before[kPer];
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) {
+      const int k = i * kT + t;
+      ln[i] = 0;
+      if (k < E) {
+        const uint32_t l = link[k];
+        const int r = static_cast<int>(l & 0xffffu);
+        const int rc = code[r];
+        const bool lit = r == 0 || rc < alphabet;
+        ln[i] = (lit ? 1 : 0) + static_cast<int>(l >> 16);
+        len16[k] = static_cast<uint16_t>(ln[i]);
+        first8[k] = static_cast<uint8_t>(r == 0 ? rc & 0xFF : (lit ? rc : 0));
+      }
+      v[i] = ln[i];
+    }
+    int64_t total;
+    epoch_forest::cta_scan<kT, kPer>(v, before, &total, sums);
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) {
+      const int k = i * kT + t;
+      if (k < E) loff[k] = static_cast<int32_t>(before[i]);
+    }
+
+    // 3. Where the block stops in this epoch, and the state frozen there:
+    // the first word past block_size, else the first code past the next
+    // index, else n_codes.
+    int stop = span, kind = 0;
+    int64_t f_off = base + total;
+    int f_len = x_len;
+    if (x_stop) {
+      stop = 0;
+      f_off = base;
+    } else {
+      if (base + total > block_size) {
+#pragma unroll
+        for (int i = 0; i < kPer; ++i) {
+          const int k = i * kT + t;
+          if (k < E && base + before[i] + ln[i] > block_size) {
+            atomicMin(&s_over, k);
           }
-          const bool first_step = fixed ? t == 0 : t == start;
-          const bool root = code < alphabet;
-          const bool kwkwk = code == nxt;
-          const bool bad = !first_step && code > nxt;
-          if (bad) {
-            e = 1;
-            ec = code;
-          }
-          bool ok = !bad;
-          const bool is_lit = first_step || root;
-          const bool lookup = ok && !is_lit && !kwkwk;
-          const int len_c = lookup ? static_cast<int>((a >> 8) & 0xFFFu) : 0;
-          const int first_c = lookup ? static_cast<int>(a & 0xFFu) : 0;
-          const int sfx_c = lookup ? static_cast<int>((a >> 20) & 0xFFu) : 0;
-          const int src_d = lookup ? static_cast<int>(b & 0x1FFFFu) : 0;
-          const int pfx_c = lookup ? static_cast<int>((b >> 17) & 0xFFFu) : 0;
-          const int length = is_lit ? 1 : (kwkwk ? prev_len + 1 : len_c);
-          const int first = first_step ? (code & 0xFF)
-                                       : (root ? code
-                                               : (kwkwk ? prev_first
-                                                        : first_c));
-          const int lit_byte = root ? code : 0;
-          const int src = kwkwk ? off - prev_len : src_d;
-          if (ok && off + length > block_size) {
-            e = 2;
-            ec = code;
-            ok = false;
-          }
-          const uint32_t kind = ok ? (is_lit ? 1u : 0u) : 2u;
-          const uint32_t payload =
-              static_cast<uint32_t>(is_lit ? lit_byte : src);
-          if (j == lane) {
-            w_keep = static_cast<int32_t>(
-                (kind << 29) | (static_cast<uint32_t>(length) << 17) |
-                payload);
-          }
-          const bool ins = ok && !first_step && nxt < kTableSize;
-          if (ins) {
-            ins_a = (static_cast<uint32_t>(first & 0xFF) << 20) |
-                    (static_cast<uint32_t>((prev_len + 1) & 0xFFF) << 8) |
-                    static_cast<uint32_t>(prev_first & 0xFF);
-            ins_b = (static_cast<uint32_t>(prev_code & 0xFFF) << 17) |
-                    static_cast<uint32_t>(off - prev_len);
-            ins_code = nxt;
-            ta[nxt] = ins_a;
-            tb[nxt] = ins_b;
-          }
-          ins_prev = ins;
-          if (kRows == kRowsStride1) {
-            const uint32_t p1 = (static_cast<uint32_t>(nxt) << 20) |
-                                (static_cast<uint32_t>(prev_code) << 8) |
-                                static_cast<uint32_t>(first);
-            if (j == lane) p_keep = ins ? static_cast<int32_t>(p1) : 0;
-          } else if (kRows == kRowsStride2) {
-            const int32_t p2 =
-                pps < 0 ? (1 << 28) | ((prev_code & 0xFF) << 8) | (first & 0xFF)
-                        : ((pps >> 8) << 16) | ((pps & 0xFF) << 8) |
-                              (first & 0xFF);
-            if (j == lane) p_keep = ins ? p2 : 0;
-          }
-          if (ok) {
-            if (is_lit) {
-              pps = -1;
-            } else if (kwkwk) {
-              pps = (prev_code << 8) | (first & 0xFF);
-            } else {
-              pps = (pfx_c << 8) | sfx_c;
-            }
-            off += length;
-            prev_len = length;
-            prev_first = first;
-            prev_code = code;
-          }
-          if (fixed) {
-            nxt += ins ? 1 : 0;
+        }
+        __syncthreads();
+        stop = s_over;
+        kind = 2;
+        f_off = base + loff[stop];
+      } else if (E < lim) {
+        stop = E;
+        kind = 1;
+      } else if (lim < span) {
+        stop = lim;
+      }
+      if (stop > 0) f_len = len16[stop - 1];
+      if (t == 0 && stop < span) {
+        totals[n] = static_cast<int32_t>(f_off);
+        err[n] = kind;
+        err_code[n] = kind ? code[stop] : 0;
+      }
+    }
+
+    // 4. The words and pair rows, the holes past the stop.
+    nxt_frozen = min(ff + max(stop - 1, 0), kTableSize);
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) {
+      const int k = i * kT + t;
+      if (k >= span) continue;
+      const int cd = c[i];
+      uint32_t w;
+      int32_t p = 0;
+      if (k < stop || (k == stop && kind == 2)) {
+        int64_t src = 0;
+        if (k > 0 && cd >= ff) {
+          src = base + loff[cd - ff];
+          if (cd != ff + k - 1) src &= 0x1FFFF;  // a looked-up entry's field
+        }
+        w = word_desc(k == 0 || cd < alphabet, cd, alphabet, ln[i], src);
+        if (k == stop) {
+          w = (w & 0x1FFFFFFFu) | (2u << 29);
+        } else if (kRows == kRowsStride1 && k >= 1) {
+          p = static_cast<int32_t>(
+              (static_cast<uint32_t>(ff + k - 1) << 20) |
+              (static_cast<uint32_t>(code[k - 1]) << 8) |
+              static_cast<uint32_t>(first8[k]));
+        } else if (kRows == kRowsStride2 && k >= 1) {
+          // (prefix, suffix) of the code step k - 1 consumed, -1 for a root.
+          const int q = k - 1;
+          const int cq = code[q];
+          int pps;
+          if (q == 0 || cq < alphabet) {
+            pps = -1;
+          } else if (cq < ff) {
+            pps = 0;
+          } else if (cq == ff + q - 1) {
+            pps = (code[q - 1] << 8) | first8[q];
           } else {
-            nxt = nxt_next;
-            start = start_next;
+            pps = ((code[cq - ff] & 0xFFF) << 8) | first8[cq - ff + 1];
           }
-          code = code_next;
-          code_next = code_after;
-          a = a_next;
-          b = b_next;
+          const int fk = first8[k];
+          p = pps < 0 ? (1 << 28) | ((code[q] & 0xFF) << 8) | fk
+                      : ((pps >> 8) << 16) | ((pps & 0xFF) << 8) | fk;
         }
-        // The window's words and rows, one store of up to 32.
-        if (lane < t - t0) {
-          w_row[t0 + lane] = w_keep;
-          if (kRows != kRowsNone) p_row[t0 + lane] = p_keep;
-        }
-        if (t >= nc || e != 0) break;
-        cs.fill<2>(st_code);
-        if (!fixed) {
-          ns.fill<1>(st_next);
-          ss.fill<1>(st_start);
+      } else {
+        const int u = s0 + k;
+        const int nu = kFixed ? nxt_frozen : __ldg(sched + u);
+        const bool first_u = kFixed ? k == 0 : u == __ldg(sched + S + u);
+        w = hole_word(cd, nu, first_u, alphabet, f_len,
+                      static_cast<int>(f_off));
+      }
+      words[row + k] = static_cast<int32_t>(w);
+      if (kRows != kRowsNone) rows[row + k] = p;
+    }
+    base = f_off;
+    x_len = f_len;
+    x_stop = x_stop || stop < span;
+  }
+  if (!kFixed || S <= span) {
+    if (t == 0 && !x_stop) {
+      totals[n] = static_cast<int32_t>(base);
+      err[n] = 0;
+      err_code[n] = 0;
+    }
+    return;
+  }
+
+  // 5. A fixed-12 block's steps past its epoch, kEpochSteps a chunk: holes
+  // if it stopped in the epoch, else the frozen tail.  The code and link
+  // arrays now hold each chunk step's own length (a root's) and its link:
+  // KwKwK on 4096 extends the step before it.
+  const bool stopped = x_stop;
+  int64_t off = base, f_off = base;
+  int prev_len = x_len, f_len = x_len;
+  bool done = stopped;
+  int t_kind = 0, t_code = 0;
+  const int tail_nxt = stopped ? nxt_frozen : kTableSize;
+  int32_t* root_len = code;
+  const int64_t brow = static_cast<int64_t>(n) * S;
+  __syncthreads();  // every read of the epoch's codes is done
+  for (int j0 = span; j0 < S; j0 += kEpochSteps) {
+    int cj[kPer], len_k[kPer];
+    int64_t at[kPer];
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) {
+      const int j = j0 + i * kT + t;
+      cj[i] = j < S ? __ldg(codes + brow + j) : 0;
+      len_k[i] = 0;
+      at[i] = 0;
+    }
+    const int64_t chunk_off = off;
+    int stop_k = 0, chunk_kind = 0;  // past the stop every step is a hole
+    if (!done) {
+      const int live = min(max(nc - j0, 0), kEpochSteps);
+#pragma unroll
+      for (int i = 0; i < kPer; ++i) {
+        const int k = i * kT + t;
+        if (k < live) {
+          const int cd = cj[i];
+          const bool kwkwk = cd == kTableSize;
+          const bool bad = cd > kTableSize;
+          if (bad) atomicMin(&s_bad, k);
+          root_len[k] = cd < alphabet ? 1
+                        : kwkwk       ? (k == 0 ? prev_len + 1 : 0)
+                        : bad         ? 0
+                                      : len16[cd - ff] + 1;
+          link[k] = kwkwk && k > 0 ? static_cast<uint32_t>(k - 1) | (1u << 16)
+                                   : static_cast<uint32_t>(k);
         }
       }
+      __syncthreads();
+      const int E2 = min(s_bad, live);
+      epoch_forest::jump_to_roots<kT, kPer>(link, E2);
+#pragma unroll
+      for (int i = 0; i < kPer; ++i) {
+        const int k = i * kT + t;
+        if (k < E2) {
+          const uint32_t l = link[k];
+          len_k[i] = root_len[l & 0xffffu] + static_cast<int>(l >> 16);
+        }
+        v[i] = len_k[i];
+      }
+      int64_t chunk_total;
+      epoch_forest::cta_scan<kT, kPer>(v, at, &chunk_total, sums);
+#pragma unroll
+      for (int i = 0; i < kPer; ++i) {
+        const int k = i * kT + t;
+        if (k < E2 && off + at[i] + len_k[i] > block_size) {
+          atomicMin(&s_over, k);
+        }
+      }
+      __syncthreads();
+      const int over = s_over;
+      stop_k = min(over, E2);
+      chunk_kind = over < E2 ? 2 : (E2 < live ? 1 : 0);
+#pragma unroll
+      for (int i = 0; i < kPer; ++i) {
+        const int k = i * kT + t;
+        if (k == stop_k - 1) s_len = len_k[i];
+        if (k == stop_k) {
+          s_off = off + at[i];
+          s_code = cj[i];
+        }
+      }
+      __syncthreads();
+      const int last_len = stop_k > 0 ? s_len : prev_len;
+      if (stop_k < kEpochSteps) {  // the chunk holds the stop, or the end
+        done = true;
+        t_kind = chunk_kind;
+        t_code = chunk_kind ? s_code : 0;
+        f_off = s_off;
+        f_len = last_len;
+      } else {
+        off += chunk_total;
+        prev_len = last_len;
+      }
     }
-    // The steps after the stop: holes from the frozen state, no rows.
-    for (int u = t + lane; u < S; u += 32) {
-      const int cu = c_row[u];
-      const int nu = fixed ? nxt : sched[u];
-      const bool first_u = fixed ? u == 0 : u == sched[S + u];
-      w_row[u] = static_cast<int32_t>(
-          hole_word(cu, nu, first_u, alphabet, prev_len, off));
-      if (kRows != kRowsNone) p_row[u] = 0;
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) {
+      const int k = i * kT + t;
+      const int j = j0 + k;
+      if (j >= S) continue;
+      const int cd = cj[i];
+      uint32_t w;
+      if (k < stop_k || (k == stop_k && chunk_kind == 2)) {
+        int64_t src = 0;
+        if (cd == kTableSize) {  // where the word before it starts
+          src = chunk_off + at[i] - (len_k[i] - 1);
+        } else if (cd >= alphabet) {
+          src = loff[cd - ff] & 0x1FFFF;
+        }
+        w = word_desc(cd < alphabet, cd, alphabet, len_k[i], src);
+        if (k == stop_k) w = (w & 0x1FFFFFFFu) | (2u << 29);
+      } else {
+        w = hole_word(cd, tail_nxt, false, alphabet, f_len,
+                      static_cast<int>(f_off));
+      }
+      words[brow + j] = static_cast<int32_t>(w);
+      if (kRows != kRowsNone) rows[brow + j] = 0;
     }
-    if (lane == 0) {
-      totals[n] = off;
-      err[n] = e;
-      err_code[n] = ec;
-    }
+  }
+  if (t == 0 && !stopped) {
+    totals[n] = static_cast<int32_t>(done ? f_off : off);
+    err[n] = t_kind;
+    err_code[n] = t_code;
   }
 }
 
 }  // namespace
 
-// Launch on `stream` with `grid` CTAs of `warps` warps and `shared_bytes`
-// (= warps * kChainBytes) of dynamic shared memory; returns the first CUDA
-// error of setting the shared limit or of the launch (0 on success).
-// `sched` is null for the fixed flavor, else the [2, S] schedule rows (next
-// index - 1, epoch start ordinal) of a strict variable stream.  `order`
-// lists the blocks longest first and `counter` (zeroed by the caller)
-// counts the blocks taken.  `rows` is null unless pair rows [N, S] are
+// Launch on `stream`: one CTA of `threads` threads with `shared_bytes` of
+// dynamic shared memory per block, its epochs of `period` steps, `epochs`
+// a block; returns the first CUDA error of checking the layout, setting
+// the shared limit or the launch (0 on success).  `sched` is null for the
+// fixed flavor (one epoch a block of 4097 - first_free steps, the frozen
+// tail after it), else the [2, S] schedule rows (next index - 1, epoch
+// start ordinal) of a strict variable stream, whose epochs are
+// schedule.epoch_steps codes.  `rows` is null unless pair rows [N, S] are
 // wanted, of `row_kind` 1 (stride-1) or 2 (stride-2).
 extern "C" int decode_pass1_launch(
     const int32_t* codes, const int32_t* n_codes, int n_blocks, int S,
     int block_size, int alphabet, int first_free, const int32_t* sched,
-    const int32_t* order, int32_t* counter, int32_t* words, int32_t* rows,
-    int row_kind, int32_t* totals, int32_t* err, int32_t* err_code, int grid,
-    int warps, int shared_bytes, void* stream) {
+    int period, int epochs, int32_t* words, int32_t* rows, int row_kind,
+    int32_t* totals, int32_t* err, int32_t* err_code, int threads,
+    int shared_bytes, void* stream) {
+  if (threads != kThreads || shared_bytes != kSharedBytes || period < 1 ||
+      period > kEpochSteps || epochs < 1 || n_blocks < 0 ||
+      first_free > kTableSize) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (n_blocks == 0) return 0;
   const bool fixed = sched == nullptr;
   auto* kernel = fixed ? &decode_pass1_kernel<kRowsNone, true>
                        : &decode_pass1_kernel<kRowsNone, false>;
@@ -329,17 +471,12 @@ extern "C" int decode_pass1_launch(
     kernel = fixed ? &decode_pass1_kernel<kRowsStride2, true>
                    : &decode_pass1_kernel<kRowsStride2, false>;
   }
-  return warp_chain::launch<kChainBytes>(
-      kernel, grid, warps, shared_bytes, stream, codes, n_codes, n_blocks, S,
-      block_size, alphabet, first_free, sched, order, counter, words, rows,
-      totals, err, err_code);
-}
-
-// CTAs per SM at `warps` warps and `shared_bytes`, into *ctas (the row
-// kinds and flavors take the same resources but for registers; this asks
-// for the variable stride-2 kernel, the largest).
-extern "C" int decode_pass1_occupancy(int warps, int shared_bytes,
-                                      int* ctas) {
-  return warp_chain::occupancy<kChainBytes>(
-      &decode_pass1_kernel<kRowsStride2, false>, warps, shared_bytes, ctas);
+  const int rc = static_cast<int>(cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSharedBytes));
+  if (rc != 0) return rc;
+  kernel<<<n_blocks, kThreads, kSharedBytes,
+           static_cast<cudaStream_t>(stream)>>>(
+      codes, n_codes, S, block_size, alphabet, first_free, sched, period,
+      epochs, words, rows, totals, err, err_code);
+  return static_cast<int>(cudaGetLastError());
 }

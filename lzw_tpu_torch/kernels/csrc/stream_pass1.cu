@@ -41,7 +41,8 @@
 //      first_free), or it extends the word of step c - first_free by one
 //      byte (c = first_free + k - 1 is KwKwK).  Lengths and first bytes are
 //      depths and roots of that forest: pointer jumping over u32 links
-//      (parent | depth << 16) in shared memory, at most 12 rounds.
+//      (parent | depth << 16) in shared memory, at most 12 rounds
+//      (epoch_forest.cuh, shared with decode_pass1.cu).
 //   3. Emit: a CTA scan of the word lengths (the first word counts 1 byte,
 //      but carries the map's length into the next insert) gives the
 //      offsets; the words, the inserted entries gbase + k - 1 and, after a
@@ -58,6 +59,8 @@
 
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "epoch_forest.cuh"
 
 namespace {
 
@@ -115,48 +118,6 @@ __device__ __forceinline__ int read_code(const uint8_t* bytes, int readable,
   return static_cast<int>(
       little ? ((b0 | (b1 << 8) | (b2 << 16)) >> sh) & mask
              : (((b0 << 16) | (b1 << 8) | b2) >> (24 - sh - w)) & mask);
-}
-
-// Exclusive prefix sums of v[i], the value of step i * kThreads + t, in
-// step order: before[i] gets the sum of every earlier step's value, *total
-// the CTA's sum.  Every thread calls it; `sums` (kPer x kWarps) is free
-// again when it returns.
-__device__ __forceinline__ void cta_scan(const int64_t (&v)[kPer],
-                                         int64_t (&before)[kPer],
-                                         int64_t* total, int64_t* sums) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  int64_t x[kPer];
-#pragma unroll
-  for (int i = 0; i < kPer; ++i) {
-    x[i] = v[i];
-#pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-      const int64_t y = __shfl_up_sync(0xffffffffu, x[i], o);
-      if (lane >= o) x[i] += y;
-    }
-    if (lane == 31) sums[i * kWarps + warp] = x[i];
-  }
-  __syncthreads();
-  if (warp < kPer) {  // warp i scans the warp sums of row i
-    int64_t s = sums[warp * kWarps + lane];
-#pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-      const int64_t y = __shfl_up_sync(0xffffffffu, s, o);
-      if (lane >= o) s += y;
-    }
-    sums[warp * kWarps + lane] = s;
-  }
-  __syncthreads();
-  int64_t row_base = 0;
-#pragma unroll
-  for (int i = 0; i < kPer; ++i) {
-    before[i] =
-        row_base + (warp ? sums[i * kWarps + warp - 1] : 0) + x[i] - v[i];
-    row_base += sums[i * kWarps + kWarps - 1];
-  }
-  *total = row_base;
-  __syncthreads();
 }
 
 struct Word {
@@ -284,33 +245,7 @@ __global__ void __launch_bounds__(kThreads, 1) stream_pass1_kernel(
       }
     }
     __syncthreads();
-    while (true) {
-      uint32_t next[kPer];
-      bool moved = false;
-#pragma unroll
-      for (int i = 0; i < kPer; ++i) {
-        const int k = i * kThreads + t;
-        next[i] = 0;
-        if (k < E) {
-          const uint32_t l = m.link[k];
-          const uint32_t p = l & 0xffffu;
-          const uint32_t pl = m.link[p];
-          next[i] = l;
-          if ((pl & 0xffffu) != p) {
-            next[i] = (pl & 0xffffu) |
-                      ((l & 0xffff0000u) + (pl & 0xffff0000u));
-            moved = true;
-          }
-        }
-      }
-      if (!__syncthreads_or(moved)) break;
-#pragma unroll
-      for (int i = 0; i < kPer; ++i) {
-        const int k = i * kThreads + t;
-        if (k < E) m.link[k] = next[i];
-      }
-      __syncthreads();
-    }
+    epoch_forest::jump_to_roots<kThreads, kPer>(m.link, E);
 
     // 3. Emit the words and the inserted entries.  p[i] is the word of
     // step k - 1: the neighbouring lane's, or looked up by lane 0.
@@ -327,7 +262,7 @@ __global__ void __launch_bounds__(kThreads, 1) stream_pass1_kernel(
       if (lane == 0 && k >= 1 && k < E) p[i] = word_of(m, k - 1, gbase, ff);
     }
     int64_t epoch_total;
-    cta_scan(len, before, &epoch_total, sums);
+    epoch_forest::cta_scan<kThreads, kPer>(len, before, &epoch_total, sums);
     const int64_t ws = w0 + s0;
 #pragma unroll
     for (int i = 0; i < kPer; ++i) {
@@ -427,7 +362,8 @@ __global__ void __launch_bounds__(kThreads, 1) stream_pass1_kernel(
         len[i] = live ? m.map_len[c[i]] : 0;
       }
       int64_t chunk_total;
-      cta_scan(len, before, &chunk_total, sums);
+      epoch_forest::cta_scan<kThreads, kPer>(len, before, &chunk_total,
+                                             sums);
 #pragma unroll
       for (int i = 0; i < kPer; ++i) {
         const int j = base + i * kThreads + t;

@@ -1,10 +1,8 @@
-// Shared shape of the one-chain-per-warp kernels (encode_parse.cu,
-// decode_pass1.cu): each warp owns one LZW block at a time, with the block's
-// dictionary in dynamic shared memory, and then takes another block: the
-// encoder's blocks are all alike, so it strides by gridDim.x * warps;
-// pass 1's differ several-fold in codes, so its warps take them longest
-// first from a shared work list (take).  A CTA's dynamic shared memory holds
-// the warps' tables first, then each warp's small staging buffer.
+// Shared shape of the one-chain-per-warp kernels (encode_parse.cu): each
+// warp owns one LZW block at a time, with the block's dictionary in dynamic
+// shared memory, and then takes another block, striding by gridDim.x *
+// warps.  A CTA's dynamic shared memory holds the warps' tables first, then
+// each warp's small staging buffer.
 //
 // The chain runs warp-uniform: every lane computes the same chain on the
 // same values (a broadcast shared-memory read costs what one lane's read
@@ -39,29 +37,18 @@ __device__ __forceinline__ void clear(void* tab, int lane) {
   __syncwarp();
 }
 
-// A read-only load widened to int32.  A byte goes through ld.global.nc.u8
-// into a 32-bit register, which the hardware zero-extends: a cast of
-// __ldg's uint8_t makes the compiler mask the value right after the load,
-// and the warp would wait for every window's load as soon as it issued it.
-__device__ __forceinline__ int32_t load_i32(const int32_t* p) {
-  return __ldg(p);
-}
-
+// A read-only byte load widened to int32.  It goes through
+// ld.global.nc.u8 into a 32-bit register, which the hardware zero-extends:
+// a cast of __ldg's uint8_t makes the compiler mask the value right after
+// the load, and the warp would wait for every window's load as soon as it
+// issued it.
 __device__ __forceinline__ int32_t load_i32(const uint8_t* p) {
   uint32_t v;
   asm("ld.global.nc.u8 %0, [%1];" : "=r"(v) : "l"(p));
   return static_cast<int32_t>(v);
 }
 
-// The next entry of a work list shared by all warps of the launch: lane 0
-// takes it from *counter, and the warp shares it.
-__device__ __forceinline__ int take(int32_t* counter, int lane) {
-  int i = 0;
-  if (lane == 0) i = atomicAdd(counter, 1);
-  return __shfl_sync(0xFFFFFFFFu, i, 0);
-}
-
-// One row of T (uint8_t or int32_t) fed to a chain window by window.
+// One row of T (uint8_t) fed to a chain window by window.
 // fill<kLook>(st) stores the window [base, base + 32) as int32 in st[0, 32)
 // and the first kLook elements of the window after it in st[32, 32 +
 // kLook), so a chain step may read kLook elements ahead without a window

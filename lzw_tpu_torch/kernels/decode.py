@@ -115,12 +115,13 @@ def decode_pass1(codes: torch.Tensor, n_codes: torch.Tensor,
     """Pass 1 over dense codes.
 
     Args:
-      codes:   i32[N, S] wire codes per block.
+      codes:   i32[N, S] wire codes per block (not negative).
       n_codes: i32[N] codes per block.
       spec:    the wire spec (``None`` or fixed: the fixed-12 table).
       block_size: decoded block bound (<= MAX_BLOCK).
       sched:   i32[2, S] schedule rows (next index - 1, epoch start) for a
-               variable spec (:func:`prepare_variable_decode`), else None.
+               variable spec, ``schedule_rows(spec, S)``
+               (:func:`prepare_variable_decode`), else None.
       rows:    which pair rows i32[N, S] to return besides (one of
                :data:`ROW_KINDS`).  Row t describes the entry created at
                step t (code c, prefix p), 0 where none was: ``"stride1"``
@@ -135,7 +136,8 @@ def decode_pass1(codes: torch.Tensor, n_codes: torch.Tensor,
       not depend on ``rows``.
 
     CPU tensors run :func:`decode_pass1_reference`; CUDA tensors run the
-    kernel, and anything else raises.
+    kernel (a CTA per block, its dictionary epochs in turn), and anything
+    else raises.
     """
     variable = spec is not None and spec.variable
     if variable != (sched is not None):
@@ -150,25 +152,25 @@ def decode_pass1(codes: torch.Tensor, n_codes: torch.Tensor,
     alphabet, first_free = _table_params(spec)
     N, S = codes.shape
     dev = codes.device
+    # A variable block's epochs start every epoch_steps codes; a fixed-12
+    # block is one epoch up to the table's freeze, then its frozen tail.
+    if sched is None:
+        period, epochs = MAX_TABLE_SIZE + 1 - first_free, 1
+    else:
+        period = _sched.epoch_steps(spec)
+        epochs = max(-(-S // period), 1)
     fn = build.bound("decode_pass1", "decode_pass1_launch")
     with build.on_device(dev):
-        g = chains.launch_geometry("decode_pass1", N, dev)
-        # The warps take the blocks longest first from a shared counter.
-        order = torch.argsort(n_codes, descending=True, stable=True).to(
-            torch.int32)
-        counter = torch.zeros(1, dtype=torch.int32, device=dev)
         words = torch.empty((N, S), dtype=torch.int32, device=dev)
         pair = (torch.empty((N, S), dtype=torch.int32, device=dev)
                 if row_kind else None)
         stats = torch.empty((3, N), dtype=torch.int32, device=dev)
         rc = fn(codes.data_ptr(), n_codes.data_ptr(), N, S, block_size,
                 alphabet, first_free,
-                None if sched is None else sched.data_ptr(),
-                order.data_ptr(), counter.data_ptr(), words.data_ptr(),
-                None if pair is None else pair.data_ptr(),
+                None if sched is None else sched.data_ptr(), period, epochs,
+                words.data_ptr(), None if pair is None else pair.data_ptr(),
                 row_kind, stats[0].data_ptr(), stats[1].data_ptr(),
-                stats[2].data_ptr(), g.grid, g.warps, g.shared_bytes,
-                build.stream(dev))
+                stats[2].data_ptr(), *chains.DECODE_PASS1, build.stream(dev))
     build.check_launch("decode_pass1", rc)
     out = (words, stats[0], stats[1], stats[2])
     return out + (pair,) if row_kind else out

@@ -38,15 +38,8 @@ __all__ = ["parse_epochs", "split_substreams",
 
 
 def _full_epoch_len(spec: LzwSpec) -> int:
-    """Data codes in a table-full epoch, derived from the schedule itself.
-
-    The early-increment strategies (TIFF) trip table-full one code sooner
-    (`lib.rs:84-91` applied at `decoder.rs:277-279`), so the bound is the
-    position of the schedule's first mandatory CLEAR — not a hardcoded
-    ``4096 - first_free + 1``, which misparses multi-epoch TIFF streams.
-    """
-    sched = _sched.emission_schedule(spec, 4200)  # > any epoch length
-    return int(np.nonzero(sched.clear_after)[0][0]) + 1
+    """Data codes in a table-full epoch (:func:`schedule.epoch_steps`)."""
+    return _sched.epoch_steps(spec)
 
 
 def _read_sym(mat, rows, bit_offs, width: int, little: bool):

@@ -30,7 +30,8 @@ from lzw_tpu_torch.spec import LzwSpec, MAX_WIDTH
 from lzw_tpu_torch.utils import spans
 
 __all__ = [
-    "Schedule", "emission_schedule", "pack_variable", "recover_counts",
+    "Schedule", "emission_schedule", "epoch_steps", "pack_variable",
+    "recover_counts",
     "schedule_rows", "unpack_variable", "unpack_variable_device",
 ]
 
@@ -203,6 +204,19 @@ def emission_schedule(spec: LzwSpec, n_max: int) -> Schedule:
     """``Schedule(spec, n_max)``, sliced from the cached tables (its arrays
     are read-only)."""
     return _tables(spec, n_max).sched.prefix(n_max)
+
+
+@functools.lru_cache(maxsize=16)
+def epoch_steps(spec: LzwSpec) -> int:
+    """Data codes of one dictionary epoch of a strict variable stream: the
+    steps from a CLEAR to the next.  Epoch ``e`` of the schedule rows holds
+    steps ``[e * P, (e + 1) * P)``, and its step ``k >= 1`` has the next
+    index ``first_free + k - 1``.  The early-increment strategies (TIFF)
+    trip table-full one code sooner (`lib.rs:84-91` applied at
+    `decoder.rs:277-279`), so this is the position of the schedule's first
+    mandatory CLEAR, not ``4096 - first_free + 1``."""
+    clear_after = Schedule(spec, 1 << MAX_WIDTH).clear_after
+    return int(np.argmax(clear_after)) + 1
 
 
 def schedule_rows(spec: LzwSpec, S: int) -> np.ndarray:

@@ -24,8 +24,9 @@ from lzw_tpu_torch.kernels.encode import encode_blocks_codes
 from lzw_tpu_torch.spec import LzwSpec, MAX_TABLE_SIZE, UnexpectedCodeError
 
 __all__ = ["spliced_nonstrict_stream", "EncodeCase", "Pass1Case",
-           "encode_edge_cases", "pass1_edge_cases", "CHAIN_COUNTS",
-           "check_edge_cases", "same_slots",
+           "encode_edge_cases", "pass1_edge_cases", "pass1_epoch_cases",
+           "CHAIN_COUNTS",
+           "check_edge_cases", "check_pass1_cases", "same_slots",
            "StreamCase", "stream_edge_cases",
            "stream_edge_rows", "check_stream_edge_cases",
            "uninit_literal_stream",
@@ -292,6 +293,118 @@ def pass1_edge_cases(seed: int = 0, full: bool = True) -> list[Pass1Case]:
     return cases
 
 
+def _word_lengths(codes: np.ndarray, spec: LzwSpec | None) -> np.ndarray:
+    """Each step's word length in a row of valid codes (no code past the
+    next index): 1 for an epoch's first code and a root, 0 for a CLEAR or
+    EOI code (an entry never inserted), else one more than the word the
+    code extends (the previous one for KwKwK, the frozen fixed-12 4096
+    included)."""
+    alphabet, ff = _dec._table_params(spec)
+    S = len(codes)
+    start = (np.zeros(S, np.int64) if spec is None
+             else schedule_rows(spec, S)[1].astype(np.int64))
+    lens = np.zeros(S, np.int64)
+    for t in range(S):
+        c = int(codes[t])
+        if t == start[t] or c < alphabet:
+            lens[t] = 1
+        elif c >= ff:
+            p = t - 1 if c == MAX_TABLE_SIZE else start[t] + c - ff
+            lens[t] = lens[p] + 1
+    return lens
+
+
+def _rootsy(rng, codes: np.ndarray, alphabet: int, share: float):
+    """``codes`` with about ``share`` of them replaced by roots (still
+    valid: a root is valid anywhere), so that words stay short."""
+    codes = codes.copy()
+    pick = rng.random(codes.shape) < share
+    codes[pick] = rng.integers(0, alphabet, size=int(pick.sum()))
+    return codes
+
+
+def _first_over(lens: np.ndarray, block_size: int) -> int:
+    """The first step whose word ends past ``block_size`` (len if none)."""
+    return int(np.searchsorted(np.cumsum(lens), block_size, side="right"))
+
+
+def pass1_epoch_cases(seed: int = 0) -> list[Pass1Case]:
+    """Pass 1's edge cases at the edges of a block's dictionary epochs,
+    which the kernel decodes one after another, each with the whole CTA:
+    counts that end on an epoch start; a code past the next index in epoch
+    3, mid-epoch and at its step 1; stale non-root first codes after a
+    CLEAR, CLEAR and EOI codes mid-epoch and KwKwK after each; outputs that
+    pass ``block_size`` at an epoch's first step, mid-epoch only through
+    the offsets of the epochs before, and inside an earlier epoch than a
+    later one's own sum shows; fixed-12 past the table's freeze, over two
+    chunks of the frozen tail, with KwKwK on the frozen next index 4096
+    across the chunk edge, a code past it, an overflow in the tail, and
+    counts at the freeze."""
+    rng = np.random.default_rng(seed)
+    gif7 = LzwSpec.gif(7)
+    alphabet, ff = gif7.alphabet_size, gif7.first_free_code
+    P = _sched.epoch_steps(gif7)
+    cases = []
+
+    # 1. Counts, corrupt codes and stale first codes at the epoch edges.
+    S = 4 * P + 60
+    codes, sched = _stream_block(rng, gif7, 7, S)
+    codes = _rootsy(rng, codes, alphabet, 0.7)
+    n = np.array([S + 7, P, 2 * P, 3 * P, S, S, S], np.int32)
+    codes[4, 3 * P + 100] = ff + 99 + 1 + int(rng.integers(0, 50))
+    codes[5, 3 * P + 1] = ff + 1
+    for e, c in enumerate((200, gif7.clear_code, gif7.end_code, 4000)):
+        codes[6, e * P] = c
+        codes[6, e * P + 1] = ff  # KwKwK on the stale first word
+    for t in (P + 10, 2 * P + 20, 3 * P + 30):
+        codes[6, t] = gif7.clear_code if t < 2 * P else gif7.end_code
+        codes[6, t + 1] = ff + t - (t // P) * P  # KwKwK on a 0-byte word
+    for row in codes:
+        assert _word_lengths(row, gif7).sum() <= MAX_BLOCK
+    cases.append(Pass1Case("epoch edges gif7: counts, corrupt, stale",
+                           gif7, codes, n, MAX_BLOCK, sched))
+
+    # 2. Overflows that the bases show: B passes block_size at epoch 2's
+    # first step, A mid-epoch 2 (its epoch 1 shortened), D inside epoch 1
+    # (lengthened by KwKwK), E never.
+    S = 2 * P + 300
+    b, sched = _stream_block(rng, gif7, 1, S)
+    b = b[0]
+    block_size = int(_word_lengths(b, gif7)[: 2 * P].sum())
+    a, d = b.copy(), b.copy()
+    a[2 * P - 100: 2 * P] = rng.integers(0, alphabet, size=100)
+    d[2 * P - 100: 2 * P] = ff + np.arange(P - 100, P) - 1
+    e, _ = _stream_block(rng, gif7, 1, S)
+    e = _rootsy(rng, e[0], alphabet, 0.95)
+    codes = np.stack([b, a, d, e])
+    over = [_first_over(_word_lengths(r, gif7), block_size) for r in codes]
+    assert block_size <= MAX_BLOCK and over[0] == 2 * P
+    assert 2 * P < over[1] < S and P < over[2] < 2 * P and over[3] == S
+    cases.append(Pass1Case("epoch overflows gif7", gif7, codes,
+                           np.full(4, S, np.int32), block_size, sched))
+
+    # 3. Fixed-12 past the freeze: one epoch of 3841 steps, then the tail.
+    fixed_steps = MAX_TABLE_SIZE + 1 - 256
+    S = fixed_steps + 4096 + 300
+    codes, _ = _stream_block(rng, None, 8, S)
+    codes = _rootsy(rng, codes, 256, 0.7)
+    tail2 = fixed_steps + 4096
+    codes[1, tail2 - 6: tail2 + 6] = MAX_TABLE_SIZE  # across the chunk edge
+    codes[2, fixed_steps] = MAX_TABLE_SIZE
+    codes[3, fixed_steps + 200] = MAX_TABLE_SIZE + 4  # past the next index
+    codes[5, tail2 + 10: tail2 + 290] = MAX_TABLE_SIZE
+    codes[7, 2000] = 256 + 1999 + 5  # past the next index before the freeze
+    # Rows 6 and 7 stop before the freeze: holes over the tail's steps.
+    n = np.array([S, S, fixed_steps, S, tail2, S, 3000, S], np.int32)
+    lens = [_word_lengths(r, None) for r in codes]
+    block_size = 40000
+    assert tail2 < _first_over(lens[5], block_size) < S
+    assert all(x[:m].sum() <= block_size for x, m in zip(lens[:5], n[:5]))
+    cases.append(Pass1Case("epoch edges fixed-12: the frozen tail", None,
+                           codes, n, block_size, None))
+    return cases
+
+
 def _same(name: str, label: str, got, want) -> None:
     if len(got) != len(want):
         raise AssertionError(f"{name} {label}: {len(got)} outputs, "
@@ -310,27 +423,12 @@ def _counted(name: str, fn):
     return out
 
 
-def check_edge_cases(device) -> tuple[int, int]:
-    """Every case of :func:`encode_edge_cases` and :func:`pass1_edge_cases`
-    through the wrappers on ``device`` against the plain versions, exact,
-    the encode parse in both instances (without and with positions, against
-    one plain run with positions) and pass 1 with every row kind; each
-    wrapper call must count one launch.  Raises AssertionError naming the
-    case; returns the numbers of encode and pass-1 cases."""
-    enc = encode_edge_cases()
-    for c in enc:
-        blocks = torch.from_numpy(c.blocks).to(device)
-        lens = torch.from_numpy(c.lens).to(device)
-        want = _enc.encode_blocks_codes_reference(blocks, lens, c.spec,
-                                                  positions=True)
-        got = _counted("encode_parse", lambda: _enc.encode_blocks_codes(
-            blocks, lens, c.spec))
-        _same("encode_parse", c.label, got, want[:4])
-        got = _counted("encode_parse", lambda: _enc.encode_blocks_codes(
-            blocks, lens, c.spec, positions=True))
-        _same("encode_parse positions", c.label, got, want)
-    p1 = pass1_edge_cases()
-    for c in p1:
+def check_pass1_cases(device, cases: list[Pass1Case]) -> int:
+    """Every case through the pass-1 wrapper on ``device`` with every row
+    kind, against the plain version, exact; each call must count one
+    launch.  Raises AssertionError naming the case and the row kind;
+    returns the number of cases."""
+    for c in cases:
         args = (torch.from_numpy(c.codes).to(device),
                 torch.from_numpy(c.n_codes).to(device), c.spec, c.block_size,
                 None if c.sched is None else torch.from_numpy(c.sched).to(
@@ -343,7 +441,30 @@ def check_edge_cases(device) -> tuple[int, int]:
             got = _counted("decode_pass1",
                            lambda: _dec.decode_pass1(*args, rows=rows))
             _same("decode_pass1", f"{c.label} rows={rows}", got, want[rows])
-    return len(enc), len(p1)
+    return len(cases)
+
+
+def check_edge_cases(device) -> tuple[int, int]:
+    """Every case of :func:`encode_edge_cases` and :func:`pass1_edge_cases`
+    through the wrappers on ``device`` against the plain versions, exact,
+    the encode parse in both instances (without and with positions, against
+    one plain run with positions) and pass 1 with every row kind
+    (:func:`check_pass1_cases`); each wrapper call must count one launch.
+    Raises AssertionError naming the case; returns the numbers of encode
+    and pass-1 cases."""
+    enc = encode_edge_cases()
+    for c in enc:
+        blocks = torch.from_numpy(c.blocks).to(device)
+        lens = torch.from_numpy(c.lens).to(device)
+        want = _enc.encode_blocks_codes_reference(blocks, lens, c.spec,
+                                                  positions=True)
+        got = _counted("encode_parse", lambda: _enc.encode_blocks_codes(
+            blocks, lens, c.spec))
+        _same("encode_parse", c.label, got, want[:4])
+        got = _counted("encode_parse", lambda: _enc.encode_blocks_codes(
+            blocks, lens, c.spec, positions=True))
+        _same("encode_parse positions", c.label, got, want)
+    return len(enc), check_pass1_cases(device, pass1_edge_cases())
 
 
 def same_slots(label: str, got: dict, want: dict) -> None:

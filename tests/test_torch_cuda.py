@@ -222,6 +222,79 @@ def test_chain_edge_cases_match_plain(cuda):
                                 len(testdata.pass1_edge_cases()))
 
 
+def test_pass1_epoch_edges_on_card(cuda):
+    # Pass 1's edges of a block's epochs (counts on an epoch start, a code
+    # past the next index in epoch 3, stale first codes after a CLEAR,
+    # overflows that only the offsets of earlier epochs show, fixed-12's
+    # frozen tail) with every row kind, against the plain version.
+    cases = testdata.pass1_epoch_cases()
+    assert testdata.check_pass1_cases(cuda, cases) == len(cases)
+
+
+# One image plane a call, as the container cells cut it: 11 x 64 KiB gif7
+# blocks of up to 8 epochs, 86 TIFF strips and 171 fixed-12 blocks.
+ONE_IMAGE = {"gif7": (LzwSpec.gif(7), 1 << 16, 11),
+             "tiff": (LzwSpec.tiff(), 8192, 86),
+             "fixed": (LzwSpec.fixed(Endianness.LITTLE), 4096, 171)}
+
+
+def _plane():
+    return load_corpus(
+        pathlib.Path(__file__).parent.parent / "test-assets")["tokyo"]
+
+
+@pytest.mark.parametrize("name", list(ONE_IMAGE))
+def test_pass1_on_one_image(name, cuda):
+    """The plane's blocks as the container's decode meets them, through
+    pass 1 with every row kind against the plain version."""
+    spec, block, n = ONE_IMAGE[name]
+    plane = np.frombuffer(_plane(), np.uint8)
+    mat = np.zeros((n, block), np.uint8)
+    mat.reshape(-1)[: len(plane)] = plane
+    lens = np.full(n, block, np.int32)
+    lens[-1] = len(plane) - (n - 1) * block
+    assert 0 < lens[-1] <= block
+    dense, counts, errs, _ = tenc.encode_blocks_codes(
+        torch.from_numpy(mat).to(cuda), torch.from_numpy(lens).to(cuda), spec)
+    assert not errs.any()
+    codes, cnt_t, sched_t = _decode_inputs(spec, dense, counts, cuda)
+    if name == "gif7":
+        assert codes.shape[1] > 4 * tsched.epoch_steps(spec)
+    case = testdata.Pass1Case(
+        f"{name} one image", spec, codes.cpu().numpy(), cnt_t.cpu().numpy(),
+        block, None if sched_t is None else sched_t.cpu().numpy())
+    assert testdata.check_pass1_cases(cuda, [case]) == 1
+
+
+@pytest.mark.parametrize("route", ["device", "host"])
+@pytest.mark.parametrize("name", list(ONE_IMAGE))
+def test_one_image_round_trip_on_card(name, route, cuda):
+    """The plane through ``BlockParallelCodec`` on both decode routes, and
+    a block that decodes past its size still raises the plain route's
+    code."""
+    from lzw_tpu_torch import UnexpectedCodeError
+    from lzw_tpu_torch.parallel import framing
+
+    spec, block, n = ONE_IMAGE[name]
+    data = _plane()
+    container = BlockParallelCodec(spec, block, device=cuda).encode(data)
+    codec = BlockParallelCodec(spec, block, device=cuda, pass2=route)
+    assert codec.decode(container) == data
+    # Block 3 holds block 4's payload too: it decodes past its size.
+    _, payloads = framing.parse_frame(container)
+    payloads = [bytes(p) for p in payloads]
+    longer = BlockParallelCodec(spec, 2 * block, device=cuda).encode(
+        data[3 * block: 5 * block])
+    payloads[3] = bytes(framing.parse_frame(longer)[1][0])
+    frame = framing.pack_frame(spec, block, len(data), payloads)
+    with pytest.raises(UnexpectedCodeError) as plain:
+        BlockParallelCodec(spec, block, device="cpu", pass2="device").decode(
+            frame)
+    with pytest.raises(UnexpectedCodeError) as got:
+        codec.decode(frame)
+    assert got.value.code == plain.value.code
+
+
 @pytest.mark.parametrize("name", list(SPECS))
 def test_encode_block_on_card(name, cuda):
     """The encode-parse kernel's positions instance against its plain

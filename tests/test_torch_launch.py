@@ -1,11 +1,12 @@
-"""The launch geometry of the one-chain-per-warp kernels and the checks of
-their wrappers, on the CPU.
+"""The launch geometry of the one-chain-per-warp encode kernel and the
+checks of the kernels' wrappers, on the CPU.
 
-``encode_parse.cu`` and ``decode_pass1.cu`` run one block's chain per warp
-with the block's dictionary in shared memory; the grid comes from
+``encode_parse.cu`` runs one block's chain per warp with the block's
+dictionary in shared memory; the grid comes from
 ``lzw_tpu_torch.kernels.chains`` in plain Python, which these tests hold
 for every block count of the card-only edge cases.  They also hold those
-edge cases to what they claim, through the plain versions.
+edge cases, the encoder's and pass 1's, to what they claim, through the
+plain versions.
 """
 
 import numpy as np
@@ -23,10 +24,7 @@ COUNTS = (0, *testdata.CHAIN_COUNTS, 2048, 8192)
 
 def _chains_of(g: chains.Geometry, n_blocks: int) -> list[list[int]]:
     """The blocks each warp takes at the encoder's static stride,
-    ``for n = blockIdx.x * warps + warp; n < N; n += gridDim.x * warps``
-    (pass 1's warps take them from a work list instead, which hands out
-    each block once by construction; the stride bounds its rounds all the
-    same)."""
+    ``for n = blockIdx.x * warps + warp; n < N; n += gridDim.x * warps``."""
     return [list(range(b * g.warps + w, n_blocks, g.grid * g.warps))
             for b in range(g.grid) for w in range(g.warps)]
 
@@ -51,7 +49,6 @@ def test_geometry_covers_every_block_once(name, n_blocks):
 
 @pytest.mark.parametrize("name, warps, chains_, rounds_main, rounds_fixed", [
     ("encode_parse", 8, 1056, 2, 8),
-    ("decode_pass1", 7, 924, 3, 9),
 ])
 def test_geometry_on_an_h100(name, warps, chains_, rounds_main, rounds_fixed):
     # The main path's 2048 x 64 KiB blocks and the fixed-12 8192 x 4 KiB.
