@@ -1617,8 +1617,8 @@ def predicted_peaks(spec, block: int, container: bytes) -> dict[str, int]:
     Variable encode: blocks u8 NB and the parse's dense i32 N(B+1) stay
     while ``schedule.pack_variable`` scatters the data codes into its
     i64 N(Pe+3) buffer (Pe the packed width): the codes as i64 and, in
-    ``_scatter_symbols``' lane loop, the byte offsets, shifts and shifted
-    codes plus three temporaries, seven i64 [N, S] in all.  Variable
+    ``ops.bitpack.scatter_symbols``, the byte offsets, the shifted codes,
+    their three byte lanes and one lane's index, six more i64 [N, S].  Variable
     decode, every route: ``schedule.unpack_variable_device`` holds the
     payloads u8 NP, their i64 copy N(W+4) (W = max(P, the last code's
     byte + 3)), three gathered i64 [N, S] and three temporaries of
@@ -2318,9 +2318,9 @@ def encode_block_peak(n: int, block: int, out_bytes: int) -> int:
     plane i32 [n, M] is scattered: 14 nM + 8 nS.  The pack, with those
     slots held (8 nS): the codes' bits and their bit offsets, i64 (16 nS),
     the i64 rows [n, O] (8 nO), and inside the lane scatter
-    (``kernels.schedule._scatter_symbols``) the first bytes, the shifts and
-    the windows, i64 (24 nS), and one lane's index and its two value
-    temporaries, i64 (24 nS): 72 nS + 8 nO."""
+    (``ops.bitpack.scatter_symbols``) the first bytes and the windows, i64
+    (16 nS), and the three byte lanes and one lane's index, i64 (32 nS):
+    72 nS + 8 nO."""
     M, S, O = block + 1, 2 * block + 3, out_bytes + 3
     return max(14 * n * M + 8 * n * S, 72 * n * S + 8 * n * O)
 

@@ -32,14 +32,13 @@ import torch
 
 from lzw_tpu_torch.kernels import build, chains
 from lzw_tpu_torch.kernels import schedule as _sched
-from lzw_tpu_torch.kernels.schedule import schedule_rows
+from lzw_tpu_torch.ops.bitpack import join_lanes, split_lanes
 from lzw_tpu_torch.spec import MAX_TABLE_SIZE, LzwSpec
 from lzw_tpu_torch.utils import spans
 
 __all__ = [
     "decode_pass1", "decode_pass1_reference", "decode_pass1_fixed",
-    "decode_pass1_variable", "prepare_variable_decode", "schedule_rows",
-    "unpack12",
+    "decode_pass1_variable", "prepare_variable_decode", "unpack12",
     "variable_pass1", "VariablePass1",
     "word_ends", "decode_pass2_stride2", "decode_pass2_stride2_flat",
     "decode_pass2_stride2_reference", "decode_pass2_device",
@@ -67,14 +66,9 @@ def unpack12(payloads: torch.Tensor, plens: torch.Tensor, little: bool):
     if PB % 3:
         raise ValueError(f"payload width {PB} is not a multiple of 3")
     b = payloads.to(torch.int32).reshape(N, PB // 3, 3)
-    b0, b1, b2 = b[..., 0], b[..., 1], b[..., 2]
-    if little:
-        c0 = b0 | ((b1 & 0xF) << 8)
-        c1 = (b1 >> 4) | (b2 << 4)
-    else:
-        c0 = (b0 << 4) | (b1 >> 4)
-        c1 = ((b1 & 0xF) << 8) | b2
-    codes = torch.stack([c0, c1], dim=-1).reshape(N, -1)
+    pair = split_lanes(join_lanes((b[..., 0], b[..., 1], b[..., 2]), little),
+                       little, n=2, bits=12)
+    codes = torch.stack(pair, dim=-1).reshape(N, -1)
     n_codes = (8 * plens.to(torch.int32)) // 12
     return codes, n_codes
 
@@ -120,7 +114,7 @@ def decode_pass1(codes: torch.Tensor, n_codes: torch.Tensor,
       spec:    the wire spec (``None`` or fixed: the fixed-12 table).
       block_size: decoded block bound (<= MAX_BLOCK).
       sched:   i32[2, S] schedule rows (next index - 1, epoch start) for a
-               variable spec, ``schedule_rows(spec, S)``
+               variable spec, ``schedule.schedule_rows(spec, S)``
                (:func:`prepare_variable_decode`), else None.
       rows:    which pair rows i32[N, S] to return besides (one of
                :data:`ROW_KINDS`).  Row t describes the entry created at
@@ -328,7 +322,7 @@ def prepare_variable_decode(payloads_np: np.ndarray, plens_np, spec: LzwSpec):
     )
     S = max(min(S_raw, int(counts.max()) if N else 1), 1)
     with spans.span("recover.schedule_rows"):
-        rows = schedule_rows(spec, S)
+        rows = _sched.schedule_rows(spec, S)
     return counts, strict, rows, S
 
 
@@ -716,15 +710,20 @@ def decode_pass2_device_reference(codes: torch.Tensor, words: torch.Tensor,
     return flat if totals is not None else flat.reshape(N, block_size)
 
 
-def to_host(flat: torch.Tensor) -> np.ndarray:
-    """Decoded bytes on the host: a CUDA tensor in one copy into pinned
-    memory (one synchronisation of its stream); a CPU tensor as it is."""
-    if flat.device.type != "cuda":
-        return flat.numpy()
-    host = torch.empty(flat.shape, dtype=flat.dtype, pin_memory=True)
-    host.copy_(flat, non_blocking=True)
-    torch.cuda.current_stream(flat.device).synchronize()
-    return host.numpy()
+def to_host(flat: torch.Tensor, out: torch.Tensor | None = None
+            ) -> np.ndarray:
+    """Decoded bytes on the host: a CUDA tensor in one copy into ``out``
+    (a host tensor of its shape, pinned for an asynchronous copy) or into
+    new pinned memory, then one synchronisation of its stream; a CPU
+    tensor copied into ``out``, or as it is."""
+    if out is None:
+        if flat.device.type != "cuda":
+            return flat.numpy()
+        out = torch.empty(flat.shape, dtype=flat.dtype, pin_memory=True)
+    out.copy_(flat, non_blocking=True)
+    if flat.device.type == "cuda":
+        torch.cuda.current_stream(flat.device).synchronize()
+    return out.numpy()
 
 
 def decode_variable_all_device(payloads_np: np.ndarray, plens_np,

@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from lzw_tpu_torch.kernels import build, chains
+from lzw_tpu_torch.ops.bitpack import join_lanes, split_lanes
 from lzw_tpu_torch.spec import MAX_TABLE_SIZE, LzwSpec
 
 __all__ = ["encode_blocks_codes", "encode_blocks_codes_reference",
@@ -219,16 +220,9 @@ def pack12(dense: torch.Tensor, counts: torch.Tensor, little: bool):
             [dense, torch.zeros((N, 1), dtype=dense.dtype,
                                 device=dense.device)], dim=1)
     c = dense.to(torch.int32).reshape(N, -1, 2)
-    c0, c1 = c[..., 0], c[..., 1]
-    if little:
-        b0 = c0 & 0xFF
-        b1 = (c0 >> 8) | ((c1 & 0xF) << 4)
-        b2 = (c1 >> 4) & 0xFF
-    else:
-        b0 = (c0 >> 4) & 0xFF
-        b1 = ((c0 & 0xF) << 4) | (c1 >> 8)
-        b2 = c1 & 0xFF
-    by = torch.stack([b0, b1, b2], dim=-1).reshape(N, -1)
+    lanes = split_lanes(join_lanes((c[..., 0], c[..., 1]), little, bits=12),
+                        little)
+    by = torch.stack(lanes, dim=-1).reshape(N, -1)
     lengths = (12 * counts.to(torch.int32) + 7) >> 3
     return by.to(torch.uint8), lengths
 

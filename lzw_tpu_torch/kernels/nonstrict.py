@@ -27,6 +27,7 @@ from lzw_tpu_torch.kernels import schedule as _sched
 from lzw_tpu_torch.kernels.decode import (
     KIND_HOLE, decode_pass1, decode_pass2_stride2_flat, to_host,
 )
+from lzw_tpu_torch.ops.bitpack import join_lanes, read_symbol
 from lzw_tpu_torch.spec import (
     BlockOverflowError, LzwSpec, MAX_WIDTH, MissingClearCodeError,
     TruncatedStreamError, UnexpectedCodeError,
@@ -35,24 +36,6 @@ from lzw_tpu_torch.utils import spans
 
 __all__ = ["parse_epochs", "split_substreams",
            "decode_variable_nonstrict_device"]
-
-
-def _full_epoch_len(spec: LzwSpec) -> int:
-    """Data codes in a table-full epoch (:func:`schedule.epoch_steps`)."""
-    return _sched.epoch_steps(spec)
-
-
-def _read_sym(mat, rows, bit_offs, width: int, little: bool):
-    """Read one ``width``-bit symbol per row at absolute bit offsets."""
-    b0 = (bit_offs >> 3).astype(np.int64)
-    sh = (bit_offs & 7).astype(np.int64)
-    if little:
-        w0 = (mat[rows, b0] | (mat[rows, b0 + 1] << 8)
-              | (mat[rows, b0 + 2] << 16))
-        return (w0 >> sh) & ((1 << width) - 1)
-    wbe = ((mat[rows, b0] << 16) | (mat[rows, b0 + 1] << 8)
-           | mat[rows, b0 + 2])
-    return (wbe >> (24 - sh - width)) & ((1 << width) - 1)
 
 
 def _epoch_schedule_tables(spec: LzwSpec, S_e: int):
@@ -67,35 +50,32 @@ def _epoch_schedule_tables(spec: LzwSpec, S_e: int):
 @functools.lru_cache(maxsize=64)
 def _slot_tables(spec: LzwSpec, L: int):
     """Per-slot extraction tables for epoch-local slots 0..L-1: bit offset,
-    width, value mask, slot end (offset + width) — all static per spec,
-    cached so the per-generation parse loop pays zero schedule work."""
+    width, slot end (offset + width) — all static per spec, cached so the
+    per-generation parse loop pays zero schedule work."""
     widths, offs = _epoch_schedule_tables(spec, max(L, 1))
     w = widths[:L].astype(np.int32)
     offs32 = offs[:L].astype(np.int32)
-    return offs32, w, ((1 << w) - 1).astype(np.int32), offs32 + w
+    return offs32, w, offs32 + w
 
 
 def _unpack_at(w24, rows, bit_off_rows, spec: LzwSpec, L: int,
                little: bool):
     """Unpack epoch-local slots 0..L-1 for each row at absolute per-row
     bit offsets, from the precombined 24-bit window matrix ``w24``
-    (``w24[i, b]`` = the 3 bytes at b, already endianness-combined).
+    (``w24[i, b]`` = the window of the 3 bytes at b).
 
     One vectorized gather per (row, slot) — widths are <= 12, so 3 bytes
     cover any alignment — with no intermediate realigned copy, so the
     generation loop is not bound by per-call overhead.  Returns vals
     i32[m, L].
     """
-    offs, w, mask, _end = _slot_tables(spec, L)
+    offs, w, _end = _slot_tables(spec, L)
     boff = bit_off_rows.astype(np.int64)[:, None] + offs[None, :]
     b0 = boff >> 3
     np.minimum(b0, w24.shape[1] - 1, out=b0)  # clamp: junk past bit_lim is
     # masked by the slot-end checks downstream
     sh = (boff & 7).astype(np.int32)
-    acc = w24[rows[:, None], b0]
-    if little:
-        return (acc >> sh) & mask[None]
-    return (acc >> (24 - sh - w[None])) & mask[None]
+    return read_symbol(w24[rows[:, None], b0], sh, w[None], little)
 
 
 def parse_epochs(payloads, plens, spec: LzwSpec, failed=None):
@@ -120,13 +100,10 @@ def parse_epochs(payloads, plens, spec: LzwSpec, failed=None):
     mat[:, :PB] = payloads
     little = spec.endianness.value == "little"
     # Pre-combined 3-byte windows: one gather per (row, slot) downstream.
-    if little:
-        w24 = mat[:, :-2] | (mat[:, 1:-1] << 8) | (mat[:, 2:] << 16)
-    else:
-        w24 = (mat[:, :-2] << 16) | (mat[:, 1:-1] << 8) | mat[:, 2:]
+    w24 = join_lanes((mat[:, :-2], mat[:, 1:-1], mat[:, 2:]), little)
     # Table-full bound on one epoch's data codes, from the schedule (the
-    # early-change strategies bump one code sooner — see _full_epoch_len).
-    S_e = _full_epoch_len(spec)
+    # early-change strategies bump one code sooner — see epoch_steps).
+    S_e = _sched.epoch_steps(spec)
     widths, offs = _epoch_schedule_tables(spec, S_e)
     bit_lim = plens * 8
 
@@ -142,8 +119,8 @@ def parse_epochs(payloads, plens, spec: LzwSpec, failed=None):
     counts: list[np.ndarray] = []
     done = ~active
     Lq = min(1024, S_e)
-    end_q = _slot_tables(spec, Lq)[3]
-    end_f = _slot_tables(spec, S_e)[3]
+    end_q = _slot_tables(spec, Lq)[2]
+    end_f = _slot_tables(spec, S_e)[2]
 
     fail = [None] * N
 
@@ -178,10 +155,8 @@ def parse_epochs(payloads, plens, spec: LzwSpec, failed=None):
             gi = np.nonzero(fullm)[0]
             if len(gi):
                 gr = g_rows[gi]
-                gv = _read_sym(
-                    mat, gr, bit_off[gr] + offs[S_e] - MAX_WIDTH,
-                    MAX_WIDTH, little,
-                )
+                gb = bit_off[gr] + offs[S_e] - MAX_WIDTH
+                gv = read_symbol(w24[gr, gb >> 3], gb & 7, MAX_WIDTH, little)
                 wrong = (gv != clear) & (gv != eoi)
                 if wrong.any() and failed is None:
                     raise MissingClearCodeError()

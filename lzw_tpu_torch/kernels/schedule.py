@@ -15,7 +15,8 @@ with a new longest stream builds nothing.  ``pack_variable`` and
 the device of the tensors they are given: one scatter-add (pack) or gather
 (unpack) per byte lane over per-ordinal offset tables, in place of the JAX
 package's reshape-per-segment form, which existed because the TPU has no
-cheap gather.
+cheap gather.  Every symbol is read and written in the bit order of
+:mod:`lzw_tpu_torch.ops.bitpack`.
 """
 
 from __future__ import annotations
@@ -26,6 +27,9 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from lzw_tpu_torch.ops.bitpack import (
+    join_lanes, read_symbol, scatter_symbols,
+)
 from lzw_tpu_torch.spec import LzwSpec, MAX_WIDTH
 from lzw_tpu_torch.utils import spans
 
@@ -258,25 +262,6 @@ def _device_tables(spec: LzwSpec, S: int, fix_eoi: bool, device: torch.device):
     }
 
 
-def _scatter_symbols(out, values, widths, bit_off, little: bool):
-    """Add symbols (values i64[N, M] at static or per-row bit offsets) into
-    the byte buffer ``out`` i64[N, PB].  Symbols occupy disjoint bits, so
-    adding equals OR-ing."""
-    N = out.shape[0]
-    bit_off = bit_off.expand(N, -1)
-    widths = widths.expand(N, -1)
-    b0 = bit_off >> 3
-    sh = bit_off & 7
-    if little:
-        window = values << sh
-        lanes = ((0, 0), (1, 8), (2, 16))
-    else:
-        window = values << (24 - widths - sh)
-        lanes = ((0, 16), (1, 8), (2, 0))
-    for lane, shift in lanes:
-        out.scatter_add_(1, b0 + lane, (window >> shift) & 0xFF)
-
-
 def pack_variable(dense: torch.Tensor, counts: torch.Tensor, spec: LzwSpec,
                   fix_eoi: bool = True):
     """Pack dense data-code arrays against the static schedule, on device.
@@ -301,7 +286,7 @@ def pack_variable(dense: torch.Tensor, counts: torch.Tensor, spec: LzwSpec,
 
     # Leading CLEAR.
     init_w = torch.tensor([[spec.initial_width]], device=dev)
-    _scatter_symbols(
+    scatter_symbols(
         out, torch.full((N, 1), spec.clear_code, dtype=torch.int64,
                         device=dev),
         init_w, torch.zeros((1, 1), dtype=torch.int64, device=dev), little,
@@ -310,20 +295,20 @@ def pack_variable(dense: torch.Tensor, counts: torch.Tensor, spec: LzwSpec,
     ordinal = torch.arange(S, device=dev)
     vals = torch.where(ordinal[None, :] < counts[:, None],
                        dense.to(torch.int64), 0)
-    _scatter_symbols(out, vals, tabs["widths"][None], tabs["bit_off"][None],
-                     little)
+    scatter_symbols(out, vals, tabs["widths"][None], tabs["bit_off"][None],
+                    little)
     # Mid-stream CLEARs: emitted only when a data code follows.
     cm = tabs["clear_m"]
     if cm.numel():
         present = (counts[:, None] > cm[None, :] + 1).to(torch.int64)
-        _scatter_symbols(
+        scatter_symbols(
             out, present * spec.clear_code,
             torch.full((1, cm.numel()), MAX_WIDTH, dtype=torch.int64,
                        device=dev),
             tabs["clear_off"][None], little,
         )
     # Trailing EOI at a per-stream offset and width.
-    _scatter_symbols(
+    scatter_symbols(
         out, torch.full((N, 1), spec.end_code, dtype=torch.int64, device=dev),
         tabs["eoi_w"][counts][:, None], tabs["eoi_off"][counts][:, None],
         little,
@@ -332,10 +317,7 @@ def pack_variable(dense: torch.Tensor, counts: torch.Tensor, spec: LzwSpec,
     return out[:, :PB].to(torch.uint8), lengths.to(torch.int32)
 
 
-# A symbol's three bytes and their weights in its 24-bit window, by order.
 _LANES = np.arange(3)
-_WEIGHTS = {True: np.array([1, 1 << 8, 1 << 16]),
-            False: np.array([1 << 16, 1 << 8, 1])}
 
 
 def _read_symbols(payloads, rows, bit_off, width, little: bool):
@@ -349,9 +331,9 @@ def _read_symbols(payloads, rows, bit_off, width, little: bool):
         window = payloads[rows, np.minimum(at, PB - 1)] * (at < PB)
     else:
         window = np.zeros(np.broadcast(rows, at).shape, np.uint8)
-    word = window.astype(np.int64) @ _WEIGHTS[little]
-    sh = bit_off & 7 if little else 24 - (bit_off & 7) - width
-    return (word >> sh) & ((1 << width) - 1)
+    b = window.astype(np.int64)
+    word = join_lanes((b[..., 0], b[..., 1], b[..., 2]), little)
+    return read_symbol(word, bit_off & 7, width, little)
 
 
 def recover_counts(payloads, plens, spec: LzwSpec):
@@ -456,16 +438,11 @@ def unpack_variable_device(payloads: torch.Tensor, counts: torch.Tensor,
                          device=dev)
     padded[:, :PB] = payloads
     b0 = (bit_off >> 3)[None, :].expand(N, -1)
-    sh = (bit_off & 7)[None, :]
-    c0 = padded.gather(1, b0)
-    c1 = padded.gather(1, b0 + 1)
-    c2 = padded.gather(1, b0 + 2)
-    mask = (1 << widths[None, :]) - 1
-    if spec.endianness.value == "little":
-        vals = ((c0 | (c1 << 8) | (c2 << 16)) >> sh) & mask
-    else:
-        vals = (((c0 << 16) | (c1 << 8) | c2) >> (24 - widths[None, :] - sh)
-                ) & mask
+    little = spec.endianness.value == "little"
+    window = join_lanes((padded.gather(1, b0), padded.gather(1, b0 + 1),
+                         padded.gather(1, b0 + 2)), little)
+    vals = read_symbol(window, (bit_off & 7)[None, :], widths[None, :],
+                       little)
     sel = torch.arange(S, device=dev)[None, :] < counts.to(torch.int64)[:, None]
     vals = torch.where(sel, vals, 0)
     bad = sel & ((vals == spec.clear_code) | (vals == spec.end_code))

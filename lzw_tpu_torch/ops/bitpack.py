@@ -18,12 +18,15 @@ write it.
 
 The numpy half is a copy of the JAX package's; the torch half replaces its
 ``jax.numpy`` half (XLA glue there, torch ops here) and runs on the device
-of the tensors it is given.  No codec path of the port calls this module
-(the encoders pack with :mod:`lzw_tpu_torch.kernels.schedule` and
-``kernels.encode.pack12``): it is the counterpart of
-``lzw_tpu.ops.bitpack``'s public functions for callers of that module,
-and :func:`pack_codes_torch` packs the slots of
+of the tensors it is given.  :func:`pack_codes_torch` packs the slots of
 :func:`lzw_tpu_torch.ops.encode.encode_block`.
+
+This module owns the wire's bit order: every code the port reads or writes
+on the host or in a plain version goes through :func:`join_lanes`,
+:func:`split_lanes`, :func:`read_symbol` and :func:`place_symbol`, and
+every torch writer through :func:`scatter_symbols` (the oracle,
+``ops.reference``, keeps its own bit code).  A kernel that reads or writes
+the wire matches these.
 """
 
 from __future__ import annotations
@@ -31,7 +34,6 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from lzw_tpu_torch.kernels.schedule import _scatter_symbols
 from lzw_tpu_torch.spec import Endianness
 
 __all__ = [
@@ -40,11 +42,66 @@ __all__ = [
     "pack_codes_torch",
     "unpack_fixed_torch",
     "packed_size",
+    "join_lanes",
+    "split_lanes",
+    "read_symbol",
+    "place_symbol",
+    "scatter_symbols",
 ]
 
 
 def packed_size(total_bits: int) -> int:
     return (total_bits + 7) // 8
+
+
+# --------------------------------------------------------------------------- #
+# The bit order                                                               #
+# --------------------------------------------------------------------------- #
+# A symbol of at most 16 bits lies within the three bytes from the one its
+# first bit is in: one 24-bit window, ``sh = bit & 7`` bits into it.
+# LSB-first streams (GIF) fill a byte from its low bit, so a window's first
+# byte is its lowest; MSB-first streams (TIFF) fill from the high bit, so
+# its first byte is its highest.  The helpers use only <<, >>, | and &, so
+# they take Python ints, numpy arrays and torch tensors alike, in the
+# caller's integer type: widen u8 bytes first (a u8 shifted by 16 is 0).
+
+
+def join_lanes(lanes, little: bool, bits: int = 8):
+    """One window from its lanes in stream order, ``bits`` bits each: the
+    first lane lowest in LSB order, highest in MSB order.  Three bytes make
+    a symbol's 24-bit window; two 12-bit codes make a fixed-12 pair's,
+    ``c0 | c1 << 12`` (LSB) or ``c0 << 12 | c1`` (MSB)."""
+    low_first = lanes if little else lanes[::-1]
+    window = low_first[0]
+    for k in range(1, len(low_first)):
+        window = window | (low_first[k] << (bits * k))
+    return window
+
+
+def split_lanes(window, little: bool, n: int = 3, bits: int = 8):
+    """The ``n`` lanes of ``bits`` bits of a window, in stream order: the
+    inverse of :func:`join_lanes`.  The window holds nothing above its top
+    lane, which is therefore not masked."""
+    mask = (1 << bits) - 1
+    low_first = [window & mask]
+    low_first += [(window >> (bits * k)) & mask for k in range(1, n - 1)]
+    low_first.append(window >> (bits * (n - 1)))
+    return tuple(low_first) if little else tuple(low_first[::-1])
+
+
+def _symbol_shift(sh, width, little: bool):
+    return sh if little else 24 - sh - width
+
+
+def read_symbol(window, sh, width, little: bool):
+    """The ``width``-bit symbol ``sh`` bits into a 24-bit window."""
+    return (window >> _symbol_shift(sh, width, little)) & ((1 << width) - 1)
+
+
+def place_symbol(value, sh, width, little: bool):
+    """The 24-bit window that holds ``value`` (``width`` bits, none above)
+    ``sh`` bits in: the inverse of :func:`read_symbol`."""
+    return value << _symbol_shift(sh, width, little)
 
 
 # --------------------------------------------------------------------------- #
@@ -63,20 +120,12 @@ def pack_codes_np(
     n_bytes = packed_size(total_bits)
     out = np.zeros(n_bytes + 2, dtype=np.int64)  # +2 slack for 3-byte windows
 
-    valid = widths > 0
-    masked = np.where(valid, codes & ((1 << widths) - 1), 0)
+    little = endianness is Endianness.LITTLE
+    # A hole's mask is 0, so it adds nothing.
+    masked = codes & ((1 << widths) - 1)
     byte_idx = offsets >> 3
-    shift = offsets & 7
-    if endianness is Endianness.LITTLE:
-        window = masked << shift
-        lanes = (window & 0xFF, (window >> 8) & 0xFF, (window >> 16) & 0xFF)
-    else:
-        window = masked << (24 - widths - shift)
-        # width-0 holes would shift by 24-0-sh; masked is 0 there so harmless,
-        # but clamp the shift to stay in defined range.
-        window = np.where(valid, window, 0)
-        lanes = ((window >> 16) & 0xFF, (window >> 8) & 0xFF, window & 0xFF)
-    for lane, vals in enumerate(lanes):
+    window = place_symbol(masked, offsets & 7, widths, little)
+    for lane, vals in enumerate(split_lanes(window, little)):
         np.add.at(out, np.minimum(byte_idx + lane, n_bytes + 1), vals)
     return out[:n_bytes].astype(np.uint8)
 
@@ -94,14 +143,10 @@ def unpack_fixed_np(
     padded = np.concatenate([data.astype(np.int64), np.zeros(2, dtype=np.int64)])
     bit = np.arange(n_codes, dtype=np.int64) * width
     byte_idx = bit >> 3
-    shift = bit & 7
-    b0, b1, b2 = padded[byte_idx], padded[byte_idx + 1], padded[byte_idx + 2]
-    mask = (1 << width) - 1
-    if endianness is Endianness.LITTLE:
-        window = b0 | (b1 << 8) | (b2 << 16)
-        return ((window >> shift) & mask).astype(np.int32)
-    window = (b0 << 16) | (b1 << 8) | b2
-    return ((window >> (24 - shift - width)) & mask).astype(np.int32)
+    little = endianness is Endianness.LITTLE
+    window = join_lanes((padded[byte_idx], padded[byte_idx + 1],
+                         padded[byte_idx + 2]), little)
+    return read_symbol(window, bit & 7, width, little).astype(np.int32)
 
 
 # --------------------------------------------------------------------------- #
@@ -126,7 +171,7 @@ def pack_codes_torch(codes: torch.Tensor, widths: torch.Tensor,
       ``out_bytes`` are dropped.
 
     Each code's bits are added at its bit offset by
-    ``kernels.schedule._scatter_symbols``, the byte-lane scatter of the
+    :func:`scatter_symbols`, the byte-lane scatter of the
     encoders' packer, into rows of ``out_bytes`` + 3 bytes: a code that
     starts past the buffer is moved to its end, so its three lanes land in
     the three slack bytes, which are dropped.
@@ -142,8 +187,7 @@ def pack_codes_torch(codes: torch.Tensor, widths: torch.Tensor,
     off.clamp_(max=8 * out_bytes)
     out = torch.zeros((codes.shape[0], out_bytes + 3), dtype=torch.int64,
                       device=codes.device)
-    _scatter_symbols(out, vals, widths, off,
-                     endianness is Endianness.LITTLE)
+    scatter_symbols(out, vals, widths, off, endianness is Endianness.LITTLE)
     out = out[:, :out_bytes].to(torch.uint8)
     if one:
         return out[0], n_bytes[0]
@@ -162,13 +206,19 @@ def unpack_fixed_torch(data: torch.Tensor, width: int,
                         torch.zeros(2, dtype=torch.int64, device=data.device)])
     bit = torch.arange(n_codes, dtype=torch.int64, device=data.device) * width
     byte_idx = bit >> 3
-    shift = bit & 7
-    b0 = padded[byte_idx]
-    b1 = padded[byte_idx + 1]
-    b2 = padded[byte_idx + 2]
-    mask = (1 << width) - 1
-    if endianness is Endianness.LITTLE:
-        window = b0 | (b1 << 8) | (b2 << 16)
-        return (window >> shift) & mask
-    window = (b0 << 16) | (b1 << 8) | b2
-    return (window >> (24 - shift - width)) & mask
+    little = endianness is Endianness.LITTLE
+    window = join_lanes((padded[byte_idx], padded[byte_idx + 1],
+                         padded[byte_idx + 2]), little)
+    return read_symbol(window, bit & 7, width, little)
+
+
+def scatter_symbols(out, values, widths, bit_off, little: bool):
+    """Add symbols (values i64[N, M], ``widths`` bits each, at static or
+    per-row bit offsets ``bit_off``) into the byte buffer ``out`` i64[N,
+    PB], one scatter-add a byte lane.  Symbols occupy disjoint bits, so
+    adding equals OR-ing."""
+    bit_off = bit_off.expand(out.shape[0], -1)
+    b0 = bit_off >> 3
+    window = place_symbol(values, bit_off & 7, widths, little)
+    for lane, vals in enumerate(split_lanes(window, little)):
+        out.scatter_add_(1, b0 + lane, vals)

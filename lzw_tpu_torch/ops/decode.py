@@ -54,6 +54,8 @@ import numpy as np
 import torch
 
 from lzw_tpu_torch.kernels import build
+from lzw_tpu_torch.kernels import schedule as _sched
+from lzw_tpu_torch.ops.bitpack import join_lanes, read_symbol
 from lzw_tpu_torch.spec import (
     MAX_TABLE_SIZE, MAX_WIDTH, LzwSpec, MissingClearCodeError,
     TruncatedStreamError, UnexpectedCodeError,
@@ -116,28 +118,19 @@ def epoch_widths(spec: LzwSpec) -> tuple[np.ndarray, np.ndarray]:
     ``widths[k]`` is the width pass 1 reads step k of an epoch at, and
     ``bits[k]`` its bit offset from the epoch's start (``bits`` has one
     more entry, the end of the last step).  An epoch starts at the stream's
-    start or after a CLEAR; its step 0 inserts nothing, each later step
-    that does not end it inserts one entry, and the width bumps after the
-    insert that makes the next index ``(1 << width) - increment`` (the rule
-    of :class:`~lzw_tpu_torch.kernels.schedule.Schedule`, one step later
-    since the decoder's insert trails the encoder's).  Variable flavors
-    have ``4098 - first_free`` steps at most (the last of them a CLEAR, an
-    EOI or the missing-CLEAR error); fixed-12 has the ``4097 -
-    first_free`` steps up to the frozen table, 12 bits each.  Read-only
-    int32 arrays.
+    start or after a CLEAR.  Variable flavors have ``4098 - first_free``
+    steps at most (the last of them a CLEAR, an EOI or the missing-CLEAR
+    error): the encoder's epoch, the widths of the first
+    :func:`~lzw_tpu_torch.kernels.schedule.epoch_steps` data codes of its
+    :class:`~lzw_tpu_torch.kernels.schedule.Schedule`, then 12 bits to the
+    step that must end it.  Fixed-12 has the ``4097 - first_free`` steps up
+    to the frozen table, 12 bits each.  Read-only int32 arrays.
     """
-    ff = spec.first_free_code
-    if not spec.variable:
-        widths = np.full(MAX_TABLE_SIZE + 1 - ff, MAX_WIDTH, np.int32)
-    else:
-        inc = spec.strategy.increment
-        width = spec.initial_width
-        out = []
-        for k in range(MAX_TABLE_SIZE + 2 - ff):
-            out.append(width)
-            if k >= 1 and ff + k == (1 << width) - inc and width < MAX_WIDTH:
-                width += 1
-        widths = np.asarray(out, np.int32)
+    steps = MAX_TABLE_SIZE + (2 if spec.variable else 1) - spec.first_free_code
+    widths = np.full(steps, MAX_WIDTH, np.int32)
+    if spec.variable:
+        period = _sched.epoch_steps(spec)
+        widths[:period] = _sched.emission_schedule(spec, period).widths
     bits = np.zeros(len(widths) + 1, np.int32)
     bits[1:] = np.cumsum(widths)
     widths.flags.writeable = False
@@ -288,14 +281,9 @@ def _pass1_row(row: bytes, n_valid: int, spec: LzwSpec, S: int, G: int):
     err_code = 0
     while not done and step < S:
         can_read = cursor + read_size <= total_bits
-        byte, sh = cursor >> 3, cursor & 7
-        b0, b1, b2 = padded[byte], padded[byte + 1], padded[byte + 2]
-        mask = (1 << read_size) - 1
-        if little:
-            code = ((b0 | (b1 << 8) | (b2 << 16)) >> sh) & mask
-        else:
-            code = (((b0 << 16) | (b1 << 8) | b2) >> (24 - sh - read_size)
-                    ) & mask
+        byte = cursor >> 3
+        code = read_symbol(join_lanes(padded[byte : byte + 3], little),
+                           cursor & 7, read_size, little)
         cursor += read_size
 
         if variable:

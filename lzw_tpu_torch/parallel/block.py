@@ -65,7 +65,8 @@ import torch
 from lzw_tpu_torch.kernels import build
 from lzw_tpu_torch.kernels.decode import (
     MAX_BLOCK, decode_fixed_all_device, decode_pass1_fixed,
-    decode_variable_all_device, prepare_variable_decode, variable_pass1,
+    decode_variable_all_device, prepare_variable_decode, to_host,
+    variable_pass1,
 )
 from lzw_tpu_torch.kernels.encode import encode_blocks_codes
 from lzw_tpu_torch.kernels.nonstrict import decode_variable_nonstrict_device
@@ -196,7 +197,13 @@ def _errors(errs: torch.Tensor, err_codes: torch.Tensor):
         return _host(errs), _host(err_codes)
 
 
-def _payload_matrix(payloads, width: int):
+def _payload_matrix(payloads, spec: LzwSpec):
+    """The payloads as the rows of a u8 matrix, zero past each, and their
+    lengths.  The matrix is as wide as the longest payload and at least
+    one column; fixed-12's is whole 3-byte code pairs (``unpack12``)."""
+    width = max(max(len(p) for p in payloads), 1)
+    if not spec.variable:
+        width = -(-width // 3) * 3
     mat = np.zeros((len(payloads), width), np.uint8)
     plens = np.zeros(len(payloads), np.int32)
     for i, p in enumerate(payloads):
@@ -555,8 +562,7 @@ class BlockParallelCodec:
             stage = self._stage_fn(r.device)
             sub = payloads[r.lo : r.hi]
             with stage("dec_host_prep"):
-                width = ((max(len(p) for p in sub) + 2) // 3) * 3
-                mat, plens = _payload_matrix(sub, max(width, 3))
+                mat, plens = _payload_matrix(sub, self.spec)
             with stage("dec_h2d"):
                 mat_t = torch.from_numpy(mat).to(r.device)
                 plens_t = torch.from_numpy(plens).to(r.device)
@@ -585,7 +591,7 @@ class BlockParallelCodec:
             stage = self._stage_fn(r.device)
             sub = payloads[r.lo : r.hi]
             with stage("dec_host_prep"):
-                mat, plens = _payload_matrix(sub, max(len(p) for p in sub))
+                mat, plens = _payload_matrix(sub, self.spec)
             with stage("dec_count_recovery"):
                 prep = prepare_variable_decode(mat, plens, self.spec)
             return mat, plens, prep
@@ -621,8 +627,7 @@ class BlockParallelCodec:
         def run(r: _Range):
             stage = self._stage_fn(r.device)
             with stage("dec_host_prep"):
-                mat, plens = _payload_matrix(
-                    payloads, max(len(p) for p in payloads))
+                mat, plens = _payload_matrix(payloads, self.spec)
             streams = decode_variable_nonstrict_device(
                 mat, plens, self.spec, self.block_size, r.device, stage)
             with spans.span("dec_join"):
@@ -643,8 +648,7 @@ class BlockParallelCodec:
             stage = self._stage_fn(r.device)
             sub = payloads[r.lo : r.hi]
             with stage("dec_host_prep"):
-                mat, plens = _payload_matrix(
-                    sub, max(max(len(p) for p in sub), 1))
+                mat, plens = _payload_matrix(sub, self.spec)
             with stage("dec_h2d"):
                 mat_t = torch.from_numpy(mat).to(r.device)
                 plens_t = torch.from_numpy(plens).to(r.device)
@@ -724,10 +728,7 @@ class BlockParallelCodec:
                                pin_memory=self.device.type == "cuda")
 
             def copy(r: _Range, i: int):
-                dst = host[ends[i] - flats[i].numel() : ends[i]]
-                dst.copy_(flats[i], non_blocking=True)
-                if r.device.type == "cuda":
-                    torch.cuda.current_stream(r.device).synchronize()
+                to_host(flats[i], host[ends[i] - flats[i].numel() : ends[i]])
 
             self._map(copy, ranges, range(len(ranges)))
             return host.numpy().tobytes()

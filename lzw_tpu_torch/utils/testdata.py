@@ -19,8 +19,10 @@ from lzw_tpu_torch.kernels import build
 from lzw_tpu_torch.kernels import decode as _dec
 from lzw_tpu_torch.kernels import encode as _enc
 from lzw_tpu_torch.kernels import schedule as _sched
-from lzw_tpu_torch.kernels.decode import MAX_BLOCK, schedule_rows
+from lzw_tpu_torch.kernels.decode import MAX_BLOCK
 from lzw_tpu_torch.kernels.encode import encode_blocks_codes
+from lzw_tpu_torch.kernels.schedule import schedule_rows
+from lzw_tpu_torch.ops.bitpack import scatter_symbols
 from lzw_tpu_torch.spec import LzwSpec, MAX_TABLE_SIZE, UnexpectedCodeError
 
 __all__ = ["spliced_nonstrict_stream", "EncodeCase", "Pass1Case",
@@ -40,7 +42,7 @@ def _pack_codes(codes: np.ndarray, widths: np.ndarray, little: bool) -> bytes:
     offs = np.concatenate([[0], np.cumsum(widths)[:-1]]).astype(np.int64)
     n_bytes = (int(widths.sum()) + 7) // 8
     out = torch.zeros((1, n_bytes + 3), dtype=torch.int64)
-    _sched._scatter_symbols(
+    scatter_symbols(
         out, torch.from_numpy(codes.astype(np.int64))[None],
         torch.from_numpy(widths.astype(np.int64))[None],
         torch.from_numpy(offs)[None], little,

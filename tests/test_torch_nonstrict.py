@@ -25,6 +25,7 @@ from lzw_tpu_torch import (
     from_reference_spec,
 )
 from lzw_tpu_torch.kernels import nonstrict as tns
+from lzw_tpu_torch.kernels import schedule as tsched
 from lzw_tpu_torch.native.runtime import NativeRuntime
 from lzw_tpu_torch.parallel import framing
 from lzw_tpu_torch.utils.testdata import spliced_nonstrict_stream
@@ -114,7 +115,7 @@ def test_nonstrict_table_full_edges_match_jax():
     # table-full CLEAR would sit: both end the stream.
     spec = JSpec.gif(7)
     S_e = jns._full_epoch_len(spec)
-    assert tns._full_epoch_len(from_reference_spec(spec)) == S_e
+    assert tsched.epoch_steps(from_reference_spec(spec)) == S_e
     sched = jsched.emission_schedule(spec, S_e + 2)
     streams = [
         _truncated_strict_stream(

@@ -291,12 +291,13 @@ def test_check_offsets():
 
 # ---- bitpack ----------------------------------------------------------------
 
+@pytest.mark.parametrize("width", range(2, 13))
 @pytest.mark.parametrize("endian", ["little", "big"])
-def test_bitpack_matches_jax(endian):
+def test_bitpack_matches_jax(endian, width):
     jend = JEndianness(endian)
     end = Endianness(endian)
     rng = np.random.default_rng(5)
-    widths = rng.integers(0, 13, 500)
+    widths = rng.integers(0, width + 1, 500)
     widths[rng.random(500) < 0.2] = 0  # holes
     codes = rng.integers(0, 1 << 16, 500)  # bits past the width are masked
     n_bits = int(widths.sum())
@@ -314,17 +315,77 @@ def test_bitpack_matches_jax(endian):
         np_bytes, jbitpack.pack_codes_np(codes, widths, jend))
     np.testing.assert_array_equal(np_bytes, got.numpy()[: int(got_n)])
     assert bitpack.packed_size(n_bits) == jbitpack.packed_size(n_bits)
-    for width in (9, 12):
-        data = rng.integers(0, 256, 301).astype(np.uint8)
-        n_codes = (8 * len(data)) // width
-        want = jbitpack.unpack_fixed_jax(jnp.asarray(data), width, jend,
-                                         n_codes)
-        got = bitpack.unpack_fixed_torch(torch.from_numpy(data), width, end,
-                                         n_codes)
-        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
-        np.testing.assert_array_equal(
-            bitpack.unpack_fixed_np(data, width, end),
-            jbitpack.unpack_fixed_np(data, width, jend))
+    data = rng.integers(0, 256, 301).astype(np.uint8)
+    n_codes = (8 * len(data)) // width
+    want = jbitpack.unpack_fixed_jax(jnp.asarray(data), width, jend, n_codes)
+    got = bitpack.unpack_fixed_torch(torch.from_numpy(data), width, end,
+                                     n_codes)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    np.testing.assert_array_equal(
+        bitpack.unpack_fixed_np(data, width, end),
+        jbitpack.unpack_fixed_np(data, width, jend))
+
+
+@pytest.mark.parametrize("width", range(2, 13))
+@pytest.mark.parametrize("endian", ["little", "big"])
+def test_bit_order_helpers_match_jax(endian, width):
+    """The bit order of ``ops.bitpack``'s helpers, at every shift in a
+    byte, on Python ints, numpy and torch, against the JAX package's
+    ``pack_codes_np`` and ``unpack_fixed_np``."""
+    little = endian == "little"
+    jend = JEndianness(endian)
+    rng = np.random.default_rng(width)
+    values = rng.integers(0, 1 << width, 16)
+    for sh in range(8):
+        # The bytes of a symbol ``sh`` bits into its first byte: a zero
+        # code of ``sh`` bits before it (a hole at 0), three bytes in all.
+        want = np.stack([
+            np.pad(jbitpack.pack_codes_np(np.array([0, v]),
+                                          np.array([sh, width]), jend),
+                   (0, 3))[:3] for v in values]).astype(np.int64)
+        for i, v in enumerate(values):
+            window = bitpack.place_symbol(int(v), sh, width, little)
+            assert bitpack.split_lanes(window, little) == tuple(want[i])
+            assert bitpack.join_lanes(tuple(int(b) for b in want[i]),
+                                      little) == window
+            assert bitpack.read_symbol(window, sh, width, little) == v
+        for as_array in (np.asarray, torch.from_numpy):
+            v = as_array(values)
+            window = bitpack.place_symbol(v, sh, width, little)
+            lanes = bitpack.split_lanes(window, little)
+            np.testing.assert_array_equal(
+                np.stack([np.asarray(b) for b in lanes], 1), want)
+            assert (bitpack.join_lanes(lanes, little) == window).all()
+            got = bitpack.join_lanes(
+                tuple(as_array(b) for b in want.T.copy()), little)
+            np.testing.assert_array_equal(np.asarray(got),
+                                          np.asarray(window))
+            np.testing.assert_array_equal(
+                np.asarray(bitpack.read_symbol(got, sh, width, little)),
+                values)
+    # Whole fixed-width streams: a code at every multiple of the width.
+    data = rng.integers(0, 256, 301)
+    bit = np.arange((8 * len(data)) // width) * width
+    padded = np.pad(data, (0, 2))
+    b0 = bit >> 3
+    window = bitpack.join_lanes((padded[b0], padded[b0 + 1], padded[b0 + 2]),
+                                little)
+    np.testing.assert_array_equal(
+        bitpack.read_symbol(window, bit & 7, width, little),
+        jbitpack.unpack_fixed_np(data.astype(np.uint8), width, jend))
+    if width == 12:
+        # A fixed-12 code pair is one window of two 12-bit lanes.
+        pair = rng.integers(0, 1 << 12, (16, 2))
+        want = np.stack([jbitpack.pack_codes_np(p, np.array([12, 12]), jend)
+                         for p in pair]).astype(np.int64)
+        lanes = bitpack.split_lanes(
+            bitpack.join_lanes((pair[:, 0], pair[:, 1]), little, bits=12),
+            little)
+        np.testing.assert_array_equal(np.stack(lanes, 1), want)
+        codes = bitpack.split_lanes(
+            bitpack.join_lanes(tuple(want.T.copy()), little), little, n=2,
+            bits=12)
+        np.testing.assert_array_equal(np.stack(codes, 1), pair)
 
 
 # ---- encode -----------------------------------------------------------------
