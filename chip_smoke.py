@@ -120,10 +120,12 @@ Phases, one line each, any failure exits non-zero:
    ``encode_parse`` never): on each facade's 16 MiB stream and on the
    text tiled to 16 MiB, the facade encode stage by stage (H2D, kernel,
    pack, D2H) == native, the kernel against its plain version exactly,
-   with ns a byte, its bound and its chain floor, and ``encode_parse`` on
-   the same one row; both kernels on 32 x 1 MiB gif7 rows; the kernel on
-   the edge rows of ``testdata.stream_encode_edge_cases`` in five
-   flavors;
+   with ns a byte, a phrase and a round, its phrases a round, its bound
+   and its chain floor, and ``encode_parse`` on the same one row; the
+   same on random 16 MiB gif7 and fixed-12 streams (short phrases); both
+   kernels on 32 x 1 MiB gif7 rows; the kernel on the edge rows of
+   ``testdata.stream_encode_edge_cases`` in five flavors, its steps
+   against the plain version's phrases;
 15. the JAX package's per-block encode (``lzw_tpu_torch.ops.encode.
    encode_block``): on phase 3's rows ``encode_block`` on the card against
    the CPU; then ``pack_codes_torch(encode_block(...))`` on 2048 x
@@ -1984,17 +1986,20 @@ def run_stream_encode(image: bytes, smi: str, device,
                       row: int = 1 << 20) -> dict[str, Result]:
     """Phase 14c: the single-stream encode kernel ``stream_encode`` on
     ``device``.  On each facade's ``facade`` bytes (gif7, TIFF, fixed-12 LE
-    and BE of the image plane, gif7 of the text tiled): the ``"torch"``
+    and BE of the image plane, gif7 of the text tiled, and random gif7 and
+    fixed-12 bytes, whose phrases are a byte or two): the ``"torch"``
     facade encode stage by stage (``enc_h2d``, ``enc_kernel``,
     ``enc_pack``, ``enc_d2h``, each synchronised) == native's bytes; the
     kernel on the stream's one row against its plain version, every array
-    exact, by CUDA events, with ns a byte, its bytes bound and its chain
-    floor (one dependent shared load a byte, the load's latency from
-    ``chain_probe``); ``encode_parse`` on the same row, equal to it and
-    timed once.  Then both kernels on ``rows`` x ``row`` gif7 rows of the
-    image plane (phase 14b's container rows), ``stream_encode`` == plain;
-    then the edge rows of ``testdata.stream_encode_edge_cases`` in five
-    flavors.  Returns {"stream_encode": Result on the gif7 image stream}."""
+    exact, by CUDA events, with ns a byte, a step (a phrase) and a round,
+    phrases a round, its bytes bound and its chain floor (two dependent
+    shared loads a round, the load's latency from ``chain_probe``);
+    ``encode_parse`` on the same row,
+    equal to it and timed once.  Then both kernels on ``rows`` x ``row``
+    gif7 rows of the image plane (phase 14b's container rows),
+    ``stream_encode`` == plain; then the edge rows of
+    ``testdata.stream_encode_edge_cases`` in five flavors.  Returns
+    {"stream_encode": Result on the gif7 image stream}."""
     import numpy as np
     import torch
 
@@ -2016,13 +2021,17 @@ def run_stream_encode(image: bytes, smi: str, device,
                 facade)
     fixed_le, fixed_be = (LzwSpec.fixed(Endianness.LITTLE),
                           LzwSpec.fixed(Endianness.BIG))
+    noise = np.random.default_rng(14).integers(0, 256, facade).astype(
+        np.uint8)
     out = {}
     for label, spec, data in (
             ("gif7 image", LzwSpec.gif(7), image[:facade]),
             ("tiff image", LzwSpec.tiff(), image[:facade]),
             ("fixed-12 LE image", fixed_le, image[:facade]),
             ("fixed-12 BE image", fixed_be, image[:facade]),
-            ("gif7 text", LzwSpec.gif(7), text)):
+            ("gif7 text", LzwSpec.gif(7), text),
+            ("gif7 random", LzwSpec.gif(7), (noise & 127).tobytes()),
+            ("fixed-12 random", fixed_le, noise.tobytes())):
         mib = len(data) / MiB
         stages = {}
         wall, enc = once_ms(lambda: senc.encode_stream_bytes(
@@ -2034,7 +2043,9 @@ def run_stream_encode(image: bytes, smi: str, device,
         blocks_h = torch.from_numpy(mat)
         lens_h = torch.tensor([len(data)], dtype=torch.int32)
         blocks, lens = blocks_h.to(device), lens_h.to(device)
-        got = tenc.encode_stream_codes(blocks, lens, spec)
+        *got, walk = tenc.encode_stream_codes(blocks, lens, spec,
+                                              stats=True)
+        steps, rounds = walk[0].tolist()
         plain_ms, want = once_ms(lambda: tenc.encode_blocks_codes_reference(
             blocks_h, lens_h, spec))
         # One timed call after a warm-up: a call takes about a second.
@@ -2060,9 +2071,13 @@ def run_stream_encode(image: bytes, smi: str, device,
                    f"({parse_ms * 1e6 / len(data):.2f} ns a byte, "
                    f"{parse_ms / ms:.2f}x), == stream_encode")
         say("stream", f"{label} {mib:.0f} MiB, {codes} codes: stream_encode "
-            f"{ms:.4f} ms ({ms * 1e6 / len(data):.2f} ns a byte) == plain "
+            f"{ms:.4f} ms ({ms * 1e6 / len(data):.2f} ns a byte, "
+            f"{ms * 1e6 / steps:.2f} ns a phrase, "
+            f"{ms * 1e6 / max(rounds, 1):.2f} ns a round, "
+            f"{len(data) / steps:.3f} bytes a phrase, "
+            f"{steps / max(rounds, 1):.3f} phrases a round) == plain "
             f"exactly (plain {plain_ms:.1f} ms); bound {res.bound_ms:.5f} "
-            f"ms by bytes, chain floor {(len(data) - 1) * load_ns / 1e6:.1f}"
+            f"ms by bytes, chain floor {2 * rounds * load_ns / 1e6:.1f}"
             f" ms ({load_ns:.2f} ns a dependent shared load)" + old
             + f"; torch facade encode {mib / wall * 1e3:.2f} MiB/s == "
             "native, stages " + ", ".join(

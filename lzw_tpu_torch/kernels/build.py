@@ -76,7 +76,7 @@ PROTOTYPES = {
     "word_ends": {"word_ends_launch": "PPIIIPP"},
     "decode_pass2": {"decode_pass2_launch": "PPPPPPPIIIIIPP"},
     "decode_pass2_stride1": {"decode_pass2_stride1_launch": "PPPPPPPIIIIIPP"},
-    "stream_encode": {"stream_encode_launch": "PLPIIIIIPPPPIIIP"},
+    "stream_encode": {"stream_encode_launch": "PLPIIIIIPPPPPIIIP"},
     "stream_pass1": {"stream_pass1_launch": "PPP" + "I" * 13 + "P" * 14},
     "stream_pass2": {"stream_pass2_launch": "PPPPPPPIIIIIIIIPPP"},
     "ablate_parse": {"ablate_parse_launch": "PPIIIIIIIP"},

@@ -21,7 +21,8 @@ import torch
 
 from lzw_tpu_torch.kernels import build
 
-__all__ = ["Layout", "LAYOUTS", "CtaLayout", "STREAM_ENCODE", "DECODE_PASS1",
+__all__ = ["Layout", "LAYOUTS", "CtaLayout", "STREAM_ENCODE",
+           "STREAM_ENCODE_CHUNK", "DECODE_PASS1",
            "MAX_SHARED_BYTES", "Geometry", "geometry", "ctas_per_sm",
            "launch_geometry", "chains_in_flight"]
 
@@ -52,11 +53,16 @@ class CtaLayout(NamedTuple):
     shared_bytes: int
 
 
-# ``csrc/stream_encode.cu``'s CTA, one a row (one thread runs the chain,
-# all zero the tables), the source's kThreads and kSharedBytes: the hash
-# (16384 u64 slots), the input ring (4 chunks of 4 KiB) and the 16-byte
-# slot of the table's address; every flavor takes the same CTA, one an SM.
-STREAM_ENCODE = CtaLayout(128, 8 * 16384 + 4 * 4096 + 16)
+# ``csrc/stream_encode.cu``'s CTA, one a row (warp 0 runs the chain, warp
+# 1 fills the ring), the source's kThreads and kSharedBytes: the table
+# (16384 u64 slots, two a bucket), the ring of 4 spans, each a chunk of
+# STREAM_ENCODE_CHUNK bytes with 16 before it and 48 after it, as prefix
+# hashes (u32, one more and 3 spare a span) and as bytes, and two u32
+# counters in a 16-byte slot; every flavor takes the same CTA, one an SM.
+STREAM_ENCODE_CHUNK = 4096
+STREAM_ENCODE = CtaLayout(
+    64, 8 * 16384 + 4 * 4 * (STREAM_ENCODE_CHUNK + 64 + 4)
+    + 4 * (STREAM_ENCODE_CHUNK + 64) + 16)
 
 # ``csrc/decode_pass1.cu``'s CTA, one a block (kThreads, kSharedBytes): by
 # step of an epoch (4096 at most), the code (i32), the forest link (u32),

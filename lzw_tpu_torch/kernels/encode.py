@@ -7,7 +7,9 @@ produce the same dense codes; on Hopper one kernel,
 parse per warp, its dictionary in shared memory (:mod:`.chains`).  The
 single-stream encode (the counterpart of ``lzw_tpu/ops/encode.py``'s scan
 at one row) has a kernel of its own, ``csrc/stream_encode.cu``
-(:func:`encode_stream_codes`): one row a CTA, one thread on its chain.
+(:func:`encode_stream_codes`): one row a CTA, one warp on its chain,
+several phrases a step; :func:`stream_table_reference` mirrors its
+table.
 
 TPU containments with no counterpart here: the ``SUPER_GROUP_MAX`` batch
 slicing and the two-dispatch encode/pack split (XLA miscompile workarounds),
@@ -26,7 +28,8 @@ from lzw_tpu_torch.ops.bitpack import join_lanes, split_lanes
 from lzw_tpu_torch.spec import MAX_TABLE_SIZE, LzwSpec
 
 __all__ = ["encode_blocks_codes", "encode_blocks_codes_reference",
-           "encode_stream_codes", "encode_blocks_fixed", "pack12"]
+           "encode_stream_codes", "stream_table_reference", "content_hash",
+           "home_slot", "encode_blocks_fixed", "pack12"]
 
 
 def _spec_params(spec: LzwSpec | None) -> tuple[int, int, int]:
@@ -98,14 +101,17 @@ def encode_blocks_codes(blocks: torch.Tensor, lens: torch.Tensor,
 
 
 def encode_stream_codes(blocks: torch.Tensor, lens: torch.Tensor,
-                        spec: LzwSpec | None):
+                        spec: LzwSpec | None, stats: bool = False):
     """:func:`encode_blocks_codes` (without positions) through the
     single-stream kernel ``csrc/stream_encode.cu``: one CTA a row, one
-    thread on its chain, for a few long rows (the facades' one stream)
-    where the container's kernel would run one warp of a card that holds
-    1056.
+    warp on its chain, several phrases a step, for a few long rows (the
+    facades' one stream) where the container's kernel would run one warp
+    of a card that holds 1056.  With ``stats`` a fifth array, i32[N, 2]:
+    each row's steps (its phrases: the codes, and one for an error) and
+    rounds (the chain warp's table loads).
 
-    CPU tensors run :func:`encode_blocks_codes_reference`; CUDA tensors run
+    CPU tensors run :func:`encode_blocks_codes_reference`, whose ``stats``
+    are its phrases and no rounds (it has no chain warp); CUDA tensors run
     the kernel, and anything else raises.  A failed build or launch raises
     (:func:`lzw_tpu_torch.kernels.build.check_launch`); nothing falls back
     to ``encode_parse.cu`` or to the plain version.  The kernel reads each
@@ -114,7 +120,12 @@ def encode_stream_codes(blocks: torch.Tensor, lens: torch.Tensor,
     """
     _check_inputs(blocks, lens)
     if blocks.device.type == "cpu":
-        return encode_blocks_codes_reference(blocks, lens, spec)
+        out = encode_blocks_codes_reference(blocks, lens, spec)
+        if stats:
+            walk = torch.stack([out[1] + out[2], torch.zeros_like(out[1])],
+                               1)
+            return (*out, walk)
+        return out
     if blocks.device.type != "cuda":
         raise ValueError(f"unsupported device {blocks.device}")
     first_free, _, reset = _spec_params(spec)
@@ -134,12 +145,17 @@ def encode_stream_codes(blocks: torch.Tensor, lens: torch.Tensor,
         counts = torch.empty(N, dtype=torch.int32, device=dev)
         err = torch.empty(N, dtype=torch.int32, device=dev)
         err_code = torch.empty(N, dtype=torch.int32, device=dev)
+        walk = (torch.empty((N, 2), dtype=torch.int32, device=dev)
+                if stats else None)
         threads, shared = chains.STREAM_ENCODE
         rc = fn(blocks.data_ptr(), stride, lens.data_ptr(), N, B, root_bits,
                 first_free, reset, dense.data_ptr(),
-                counts.data_ptr(), err.data_ptr(), err_code.data_ptr(), N,
+                counts.data_ptr(), err.data_ptr(), err_code.data_ptr(),
+                None if walk is None else walk.data_ptr(), N,
                 threads, shared, build.stream(dev))
     build.check_launch("stream_encode", rc)
+    if stats:
+        return dense, counts, err, err_code, walk
     return dense, counts, err, err_code
 
 
@@ -174,6 +190,155 @@ def _parse_row(data: bytes, first_free: int, max_code: int, reset: int):
     codes.append(prefix)
     at.append(len(data))
     return codes, at, 0, 0
+
+
+# The table of csrc/stream_encode.cu, whose constants these are
+# (kHashBase, kSlotBits, kBucketBits, kTags, kLanes; the byte mix is its
+# `mixed`):
+# a string's content hash is the polynomial sum of mixed(byte) *
+# HASH_BASE^(distance from its end) mod 2^32, with mixed(b) murmur3's
+# 32-bit finaliser of b + 1; its home bucket (two slots) is its top
+# BUCKET_BITS bits, and its entry keeps its low 20 bits as check bits.
+HASH_BASE = 0x5BD1E995
+SLOT_BITS = 14
+BUCKET_BITS = SLOT_BITS - 1
+TAGS = 16
+# The chain warp's lanes (kLanes): a step tests LANES extensions of a
+# phrase, or takes up to LANES phrases of 1 byte; a phrase of more than
+# LANES + 1 bytes goes on in rounds of all lanes, a slot a load.
+LANES = 32
+_M32 = 0xFFFFFFFF
+
+
+def _fmix32(h: int) -> int:
+    h ^= h >> 16
+    h = (h * 0x85EBCA6B) & _M32
+    h ^= h >> 13
+    h = (h * 0xC2B2AE35) & _M32
+    return h ^ h >> 16
+
+
+MIXED = tuple(_fmix32(b + 1) for b in range(256))
+
+
+def content_hash(data: bytes, h: int = 0) -> int:
+    """The stream encode kernel's content hash of ``data``, continued from
+    the hash ``h`` of the bytes before it."""
+    for b in data:
+        h = (h * HASH_BASE + MIXED[b]) & _M32
+    return h
+
+
+def home_slot(h: int) -> int:
+    """The slot where the probe for content hash ``h`` starts: the first
+    of its home bucket."""
+    return h >> (32 - BUCKET_BITS) << 1
+
+
+def _table_row(data: bytes, first_free: int, max_code: int, reset: int):
+    """One row's parse with the kernel's table beside it: (codes, err,
+    err_code, collisions, candidates, longest).
+
+    Each lookup of a string probes from its home slot, a slot at a time,
+    to the string or an empty slot; each miss inserts the string at that
+    empty slot, as the kernel does whatever its step; a reset empties the
+    table (the kernel's tag).  ``collisions`` counts the entries of
+    another string with the very same content hash that a probe met,
+    ``candidates`` those of them with the same last byte too (the check
+    bits and the byte pass: only the parent tells them apart), and
+    ``longest`` is the longest string, in bytes, at whose lookup a
+    candidate was met (0: none)."""
+    variable = reset >= 0
+    size = 1 << SLOT_BITS
+    keys, full = [None] * size, [0] * size
+    # The content hash of each code's string; the first byte's alias is a
+    # raw byte until its code is inserted.
+    hashes, lengths = {}, {}
+    child = {}
+    collisions = candidates = longest = 0
+
+    def probe(key, h, n):
+        nonlocal collisions, candidates, longest
+        s = home_slot(h)
+        while keys[s] is not None and keys[s] != key:
+            if full[s] == h:
+                collisions += 1
+                if keys[s][1] == key[1]:
+                    candidates += 1
+                    longest = max(longest, n)
+            s = (s + 1) & (size - 1)
+        return s
+
+    def insert(key, h, n):
+        s = probe(key, h, n)
+        keys[s], full[s] = key, h
+
+    def string(code):
+        if code in hashes:
+            return hashes[code], lengths[code]
+        return MIXED[code & 0xFF], 1
+
+    codes = []
+    nxt = first_free
+    prefix = data[0]
+    alias = prefix if prefix >= first_free and len(data) > 1 else -1
+    for i in range(1, len(data)):
+        k = data[i]
+        hp, n = string(prefix)
+        h = (hp * HASH_BASE + MIXED[k]) & _M32
+        code = child.get((prefix, k))
+        probe((prefix, k), h, n + 1)
+        if code is not None:
+            prefix = code
+            continue
+        if variable and k > max_code:
+            return codes, 1, k, collisions, candidates, longest
+        codes.append(prefix)
+        if variable and nxt == reset:
+            child.clear()
+            hashes.clear()
+            lengths.clear()
+            keys, full = [None] * size, [0] * size
+            nxt, alias = first_free, -1
+        elif variable or nxt < MAX_TABLE_SIZE:
+            child[prefix, k] = nxt
+            insert((prefix, k), h, n + 1)
+            hashes[nxt], lengths[nxt] = h, n + 1
+            if nxt == alias:
+                # The first step's key (the first byte, byte 1) under the
+                # content of the string that now takes its code.
+                insert((nxt, data[1]), (h * HASH_BASE + MIXED[data[1]])
+                       & _M32, n + 2)
+                alias = -1
+            nxt += 1
+        prefix = k
+    codes.append(prefix)
+    return codes, 0, 0, collisions, candidates, longest
+
+
+def stream_table_reference(blocks: torch.Tensor, lens: torch.Tensor,
+                           spec: LzwSpec | None):
+    """The stream encode kernel's table, mirrored on the host row by row
+    (:func:`_table_row`): (dense, counts, err, err_code) as
+    :func:`encode_blocks_codes_reference` gives them, and i32[N, 3] the
+    collisions, candidates and longest candidate string of each row.  Its
+    time follows the bytes, so it takes rows of kilobytes, not
+    megabytes."""
+    first_free, max_code, reset = _spec_params(spec)
+    N, B = blocks.shape
+    rows, n_valid = blocks.cpu().numpy(), lens.cpu().numpy()
+    dense = np.zeros((N, B + 1), np.int32)
+    counts, err, err_code = (np.zeros(N, np.int32) for _ in range(3))
+    stats = np.zeros((N, 3), np.int32)
+    for n in range(N):
+        if n_valid[n] <= 0:
+            continue
+        codes, err[n], err_code[n], *stats[n] = _table_row(
+            rows[n, : n_valid[n]].tobytes(), first_free, max_code, reset)
+        counts[n] = len(codes)
+        dense[n, : len(codes)] = codes
+    return tuple(torch.from_numpy(a).to(blocks.device)
+                 for a in (dense, counts, err, err_code, stats))
 
 
 def encode_blocks_codes_reference(blocks: torch.Tensor, lens: torch.Tensor,

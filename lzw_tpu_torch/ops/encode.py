@@ -6,8 +6,8 @@ width) slots per input byte) and packs the slots with
 ``bitpack.pack_codes_jax``.  The port keeps the parse in the kernels of
 :mod:`lzw_tpu_torch.kernels.encode`, which give the same dense codes: the
 block container's ``csrc/encode_parse.cu`` for many rows, and
-``csrc/stream_encode.cu`` (one thread on one stream's chain) for the
-facades' one stream.
+``csrc/stream_encode.cu`` (one warp on one stream's chain, several
+phrases a step) for the facades' one stream.
 
 * :func:`encode_block` keeps the JAX function's slot contract: the parse
   kernel's positions instance reports the byte that emitted each code, a
@@ -190,7 +190,10 @@ def encode_stream_bytes(data: bytes, spec: LzwSpec,
     container's stages are named; without it each step is a span
     (:mod:`lzw_tpu_torch.utils.spans`).  The row's build
     (``enc_host_prep``) and the error read (``enc_errors``) are spans
-    only.
+    only.  While a profiler records, the counters
+    ``stream_encode.steps`` and ``stream_encode.rounds`` take the
+    kernel's steps and rounds (copied in ``enc_errors``), and
+    ``stream_encode.bytes`` the stream's bytes.
     """
     spec.validate()
     stage = stage or spans.span
@@ -207,12 +210,18 @@ def encode_stream_bytes(data: bytes, spec: LzwSpec,
     with stage("enc_h2d"):
         blocks = torch.from_numpy(row).to(device)
         lens = torch.tensor([len(data)], dtype=torch.int32, device=device)
+    counted = spans.recording()
     with stage("enc_kernel"):
-        dense, counts, err, err_code = encode_stream_codes(blocks, lens,
-                                                           spec)
+        dense, counts, err, err_code, *walk = encode_stream_codes(
+            blocks, lens, spec, stats=counted)
     with spans.span("enc_errors"):
         if int(err[0]):
             raise UnexpectedCodeError(int(err_code[0]), spec.code_size)
+        if walk:
+            steps, rounds = walk[0][0].tolist()
+            spans.count("stream_encode.steps", steps)
+            spans.count("stream_encode.rounds", rounds)
+            spans.count("stream_encode.bytes", len(data))
     with stage("enc_pack"):
         bufs, n_bytes = pack_dense(dense[:, : max(int(counts[0]), 1)],
                                    counts, spec, fix_eoi=fix_eoi_width)

@@ -81,7 +81,10 @@ class Tally:
 # Every counter's ticks: ``recover.blocks`` (the rows count recovery was
 # given), ``recover.reads`` (the rows its candidate loop read),
 # ``encode.blocks`` / ``decode.blocks`` (the blocks of each public call of
-# the container codec, once a call whatever its ranges).
+# the container codec, once a call whatever its ranges);
+# ``stream_encode.steps`` / ``.rounds`` / ``.bytes`` (the stream encode
+# kernel's phrases and table loads and the stream's bytes, ticked only
+# while a profiler records: reading them costs a copy).
 COUNTS = Tally()
 # While a profiler records: each counter's ticks, and each span's seconds
 # under its trace name (``"lzw.dec_count_recovery"``).

@@ -10,12 +10,13 @@ so the same stream can be made on a machine without JAX.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
-from lzw_tpu_torch.kernels import build
+from lzw_tpu_torch.kernels import build, chains
 from lzw_tpu_torch.kernels import decode as _dec
 from lzw_tpu_torch.kernels import encode as _enc
 from lzw_tpu_torch.kernels import schedule as _sched
@@ -32,8 +33,9 @@ __all__ = ["spliced_nonstrict_stream", "EncodeCase", "Pass1Case",
            "StreamCase", "stream_edge_cases",
            "stream_edge_rows", "check_stream_edge_cases",
            "uninit_literal_stream",
-           "StreamEncodeCase", "epoch_misses", "stream_encode_edge_cases",
-           "stream_encode_rows", "check_stream_encode_edge_cases"]
+           "StreamEncodeCase", "epoch_misses", "hash_collision",
+           "stream_encode_edge_cases", "stream_encode_rows",
+           "check_stream_encode_edge_cases"]
 
 
 def _pack_codes(codes: np.ndarray, widths: np.ndarray, little: bool) -> bytes:
@@ -776,27 +778,148 @@ def epoch_misses(spec: LzwSpec) -> int:
     return reset - first_free + 1
 
 
+def _triangle(n: int) -> int:
+    return n * (n + 1) // 2
+
+
+@functools.lru_cache(maxsize=None)
+def hash_collision() -> tuple[bytes, bytes]:
+    """Two different strings over the bytes 0..3, of one length, with the
+    same content hash in the stream encode kernel's phrase walk
+    (``kernels.encode.content_hash``), found by meeting in the middle over
+    the per-byte differences of the two strings' hash terms."""
+    M = 1 << 32
+    pairs = {}
+    for x in range(4):
+        for y in range(4):
+            pairs.setdefault((_enc.MIXED[x] - _enc.MIXED[y]) % M, (x, y))
+    diffs = np.array(sorted(pairs), np.uint64)  # 0 first
+    n = len(diffs)
+
+    def sums(weights):
+        acc = np.zeros(1, np.uint64)
+        for w in weights:
+            acc = ((acc[:, None] + diffs[None, :] * np.uint64(w))
+                   % np.uint64(M)).ravel()
+        return acc
+
+    for length in range(9, 16):
+        w = [pow(_enc.HASH_BASE, length - 1 - i, M) for i in range(length)]
+        half = length // 2
+        left, right = sums(w[:half]), sums(w[half:])
+        order = np.argsort(left, kind="stable")
+        ordered = left[order]
+        need = (np.uint64(M) - right) % np.uint64(M)
+        lo = np.searchsorted(ordered, need, "left")
+        hi = np.searchsorted(ordered, need, "right")
+        for r in np.nonzero(hi > lo)[0]:
+            for j in order[lo[r]:hi[r]]:
+                if j == 0 and r == 0:
+                    continue  # every difference 0: one string twice
+                digits = (np.unravel_index(int(j), (n,) * half)
+                          + np.unravel_index(int(r), (n,) * (length - half)))
+                a, b = zip(*(pairs[int(diffs[d])] for d in digits))
+                a, b = bytes(a), bytes(b)
+                assert a != b and _enc.content_hash(a) == _enc.content_hash(b)
+                return a, b
+    raise AssertionError("no collision of the content hash found")
+
+
+def _collision_row(spec: LzwSpec) -> bytes:
+    """The two strings of :func:`hash_collision`, each after one prefix and
+    before one byte (their content hashes stay equal, and so do their last
+    bytes), the first repeated, then the second, then the first again,
+    until a lookup of a string of more than ``LANES + 1`` bytes has met an
+    entry of the other (the kernel's table mirrored): that lookup is a
+    round of all lanes, a slot a load, whose exact test probes past a
+    candidate of another string.  Both strings then share a bucket, so a
+    lane whose string is one byte longer finds two candidates for its
+    parent."""
+    a, b = hash_collision()
+    lead, tail = bytes([3, 1, 2, 0, 3, 3, 0, 1]) * 3, bytes([2])
+    for n in (64, 128, 256, 512):
+        data = (lead + a + tail) * n + (lead + b + tail) * n \
+            + (lead + a + tail) * n
+        row = torch.from_numpy(np.frombuffer(data, np.uint8).copy())[None]
+        walk = _enc.stream_table_reference(
+            row, torch.tensor([len(data)], dtype=torch.int32), spec)[4]
+        if int(walk[0, 2]) > _enc.LANES + 1:
+            return data
+    raise AssertionError("no long lookup met a candidate")
+
+
+def _alias_row(spec: LzwSpec, rng) -> bytes:
+    """A first byte v past the alphabet, and later the string that code v
+    names + byte 1: the key (v, byte 1) that the first step inserted is hit
+    as that code's child (it emits first_free, which nothing else reaches).
+    """
+    first_free, max_code, reset = _enc._spec_params(spec)
+    v = first_free + 2
+    for _ in range(200):
+        head = [v] + rng.integers(0, max_code + 1, 12).tolist()
+        strings, nxt, prefix = {}, first_free, head[0]
+        child = {}
+        for k in head[1:]:
+            if (prefix, k) in child:
+                prefix = child[prefix, k]
+                continue
+            child[prefix, k] = nxt
+            strings[nxt] = strings.get(prefix, [prefix]) + [k]
+            nxt += 1
+            prefix = k
+        if v not in strings:
+            continue
+        data = bytes(head + (strings[v] + [head[1]]) * 4 + [head[2]])
+        codes = _code_list(data, spec)
+        if first_free in codes[1:]:
+            return data
+    raise AssertionError("no stream hits the first byte's key")
+
+
+def _code_list(data: bytes, spec: LzwSpec) -> list[int]:
+    row = torch.from_numpy(np.frombuffer(data, np.uint8).copy())[None]
+    out = _enc.encode_blocks_codes_reference(
+        row, torch.tensor([len(data)], dtype=torch.int32), spec)
+    return out[0][0, : int(out[1][0])].tolist()
+
+
 def stream_encode_edge_cases(spec: LzwSpec,
                              seed: int = 0) -> list[StreamEncodeCase]:
     """The single-stream encoder's edge rows for one flavor: an empty and
     a 1-byte stream; one byte repeated (phrases of 1, 2, 3, ... bytes, each
     ``KwK`` insert read back at once); ``a a a`` (a root pair inserted and
     hit on the very next step); every pair of roots once (every step
-    misses, and each miss's next key is a root pair).  Variable flavors also
-    have a stream whose last byte is the miss that trips the reset, one a
-    byte past it, several full epochs, and the same strings in two epochs
-    in a row (a stale entry would be found after the reset); fixed-12 a
-    stream long past the freeze at 4096.  Code sizes below 8 also have a
-    byte past the alphabet at index 1, at index 0 (never checked) and
-    inside a long run of hits."""
+    misses, and each miss's next key is a root pair).  The kernel's phrase
+    walk tests 32 extensions of a phrase at once, so there are phrases of
+    exactly 32, 33, 34, 64 and 65 bytes (one byte repeated, then another),
+    a phrase of a hundred bytes across a chunk of its ring, and two strings
+    of one length with the same content hash, one learnt before the other
+    (a probe must pass the first and never match it).  Variable flavors
+    also have a stream whose last byte is the miss that trips the reset,
+    one a byte past it, several full epochs, and the same strings in two
+    epochs in a row (a stale entry would be found after the reset);
+    fixed-12 a stream long past the freeze at 4096.  Code sizes below 8
+    also have a byte past the alphabet at index 1, at index 0 (never
+    checked) and inside a long run of hits, as the 33rd and the 34th byte
+    of a phrase, and a first byte past the alphabet whose code a later
+    string takes and whose key is then hit."""
     rng = np.random.default_rng(seed)
     R = spec.alphabet_size if spec.variable else 256
     a = int(rng.integers(0, R))
+    other = (a + 1 + int(rng.integers(0, R - 1))) % R
+    chunk = chains.STREAM_ENCODE_CHUNK
     cases = [StreamEncodeCase("empty", b""),
              StreamEncodeCase("one byte", bytes([a])),
              StreamEncodeCase("one byte repeated", bytes([a]) * 3000),
              StreamEncodeCase("a a a", bytes([a]) * 3),
              StreamEncodeCase("every pair once", _every_pair(R))]
+    cases += [StreamEncodeCase(f"a phrase of {n} bytes",
+                               bytes([a]) * _triangle(n) + bytes([other, a]))
+              for n in (32, 33, 34, 64, 65)]
+    cases += [StreamEncodeCase("a long phrase across a chunk",
+                               bytes([a]) * (2 * chunk + 500)),
+              StreamEncodeCase("two strings with one content hash",
+                               _collision_row(spec))]
     if spec.variable:
         P = epoch_misses(spec)
         data = rng.integers(0, R, 12 * P * spec.initial_width).astype(
@@ -823,6 +946,13 @@ def stream_encode_edge_cases(spec: LzwSpec,
             StreamEncodeCase("bad byte at index 0", bytes([bad]) + valid),
             StreamEncodeCase("bad byte in a run of hits",
                              bytes([a]) * 600 + bytes([bad]) + valid),
+            StreamEncodeCase("bad byte as a phrase's 33rd",
+                             bytes([a]) * (_triangle(31) + 32) + bytes([bad])
+                             + valid),
+            StreamEncodeCase("bad byte as a phrase's 34th",
+                             bytes([a]) * (_triangle(32) + 33) + bytes([bad])
+                             + valid),
+            StreamEncodeCase("the first byte's key hit", _alias_row(spec, rng)),
         ]
     return cases
 
@@ -844,15 +974,24 @@ def stream_encode_rows(spec: LzwSpec, seed: int = 0):
 def check_stream_encode_edge_cases(device, specs) -> int:
     """:func:`stream_encode_rows` of each spec through
     ``encode_stream_codes`` on ``device`` against the plain version, every
-    output array exact; each wrapper call must count one launch.  Raises
-    AssertionError naming the flavor; returns the rows compared."""
+    output array exact; its steps are its phrases (the codes, and one for
+    an error), and a round walks ``LANES`` of them at most, so the rounds
+    are at least the steps over ``LANES`` (but the last prefix, which the
+    row's end cuts off before any lookup); each wrapper call must count one
+    launch.  Raises AssertionError naming the flavor; returns the rows
+    compared."""
     n = 0
     for spec in specs:
         _, mat, lens = stream_encode_rows(spec)
         rows, lens_t = torch.from_numpy(mat), torch.from_numpy(lens)
-        got = _counted("stream_encode", lambda: _enc.encode_stream_codes(
-            rows.to(device), lens_t.to(device), spec))
+        *got, walk = _counted("stream_encode", lambda: _enc.encode_stream_codes(
+            rows.to(device), lens_t.to(device), spec, stats=True))
         want = _enc.encode_blocks_codes_reference(rows, lens_t, spec)
         _same("stream_encode", str(spec), [g.cpu() for g in got], want)
+        steps, rounds = walk.cpu().T
+        _same("stream_encode steps", str(spec), [steps], [want[1] + want[2]])
+        if not bool((_enc.LANES * rounds + 1 >= steps).all()):
+            raise AssertionError(f"stream_encode rounds ({spec}): {rounds} "
+                                 f"for steps {steps}")
         n += len(lens)
     return n

@@ -403,3 +403,28 @@ def test_torch_facade_spans(tmp_path):
                        "lzw.enc_pack"],
         "lzw.decode": ["lzw.dec_d2h_out", "lzw.dec_errors", "lzw.dec_h2d",
                        "lzw.dec_host_prep", "lzw.dec_stream"]}
+
+
+def test_stream_encode_counts_only_while_profiled(tmp_path):
+    # encode_stream_bytes adds the kernel's steps and rounds (here the
+    # plain version's: its phrases, no rounds) and the stream's bytes to
+    # the counters only while a profiler records; unprofiled calls read
+    # nothing back.
+    from lzw_tpu_torch.kernels import encode as tenc
+    from lzw_tpu_torch.ops.encode import encode_stream_bytes
+
+    spec = LzwSpec.gif(7)
+    data = bytes(range(64)) * 40
+    encode_stream_bytes(data, spec, device="cpu")
+    assert not any(k.startswith("stream_encode.")
+                   for k in spans.COUNTS.snapshot())
+    _traced(tmp_path, lambda: encode_stream_bytes(data, spec, device="cpu"))
+    row = torch.from_numpy(np.frombuffer(data, np.uint8).copy())[None]
+    plain = tenc.encode_blocks_codes_reference(
+        row, torch.tensor([len(data)], dtype=torch.int32), spec)
+    want = {"stream_encode.bytes": len(data),
+            "stream_encode.steps": int(plain[1][0] + plain[2][0]),
+            "stream_encode.rounds": 0}
+    for tally in (spans.COUNTS, spans.PROFILED):
+        got = tally.snapshot()
+        assert {k: got.get(k) for k in want} == want
